@@ -4,13 +4,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout, holds each against its
-plain PyTorch twin at the main path's shapes, drives the serving path
-(4 progressive frames of the 512 x 512 glTF bunny through dispatch "auto",
-which must go through the cluster-sweep kernel: 5 launches per frame),
-renders the 1024 x 1024 Cornell box through the brute-force path, checks the
-images, and prints times beside the card's name and power limit.  The last
-two lines of standard output are a JSON line describing every ported kernel
-and {"ok": true, "device": {...}}.  Any failed check raises: the script then
+plain PyTorch twin at the main path's shapes, and drives three render paths
+of the 512 x 512 glTF bunny, 4 progressive frames each, every one of which
+must go through its kernel 5 times per frame:
+
+- dispatch "auto" -> the cluster sweep (kernels/csrc/cluster_sweep.cu);
+- dispatch "pallas" on the bunny split into draws of at most 8,192
+  triangles -> the BVH walk (kernels/csrc/bvh_walk.cu);
+- the cluster sweep with cluster_kernel="mxu" -> the plane-form sweep
+  (kernels/csrc/cluster_sweep_mxu.cu).
+
+It also renders the 1024 x 1024 Cornell box through the brute-force path
+and the plain "wavefront" BVH walks at 64 x 64, checks the images, and
+prints times beside the card's name and power limit.  The last two lines of
+standard output are a JSON line describing every ported kernel and
+{"ok": true, "device": {...}}.  Any failed check raises: the script then
 exits non-zero and prints no result.  It fails without a CUDA card and
 outside the repository (the port's package must be importable).
 """
@@ -24,9 +32,19 @@ import time
 
 import torch
 
+from wc_path_tracer_tpu_torch import RenderConfig
+from wc_path_tracer_tpu_torch.kernels import build, cluster, traversal
+from wc_path_tracer_tpu_torch.models.builtin import cornell_box_scene
+from wc_path_tracer_tpu_torch.models.procedural import bunny_gltf_scene
+from wc_path_tracer_tpu_torch.render import dispatch, golden, sweep, wavefront
+from wc_path_tracer_tpu_torch.scene.camera import camera_matrices
+
 H100_FP32_FLOPS = 67e12      # FP32 non-tensor peak, H100 SXM at 700 W
 H100_HBM_BYTES = 3.35e12     # HBM3 bytes/s, H100 SXM
 OPS_PER_TEST = 54            # FP32 ops per ray x triangle test (cluster_sweep.cu)
+OPS_PER_PLANE_TEST = 103     # FP32 ops per ray x slot (cluster_sweep_mxu.cu)
+OPS_PER_POP = 25             # slab test + enter compares (bvh_walk.cu)
+OPS_PER_INNER = 47           # two child slab tests + the near-child choice
 BUNNY = dict(width=512, height=512, samples=1, max_bounces=4, sky="gradient")
 CORNELL = dict(width=1024, height=1024, samples=1, max_bounces=4,
                sky="gradient")
@@ -92,17 +110,285 @@ def image_agreement(a, b, tol):
     return float(((a - b).abs().amax(dim=-1) <= tol).float().mean())
 
 
+def nbytes(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def bound(ops, nb):
+    """(bound ms, what bounds it) for ``ops`` FP32 operations and ``nb``
+    bytes moved, at the H100's published peaks."""
+    ops_ms = ops / H100_FP32_FLOPS * 1e3
+    bytes_ms = nb / H100_HBM_BYTES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms \
+        else "bytes"
+
+
+def serve(scene, mats, cfg, frame_fn):
+    """4 progressive frames through ``frame_fn`` (None: dispatch "auto") ->
+    (image, ms per frame, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        img = None
+        with torch.no_grad():
+            for f in range(4):
+                img = golden.render_step(scene, mats, cfg, f, img,
+                                         frame_fn=frame_fn)
+        return img
+
+    image, s = sync_time(run)
+    return image, s / 4 * 1e3, torch.cuda.max_memory_allocated() / 2**30
+
+
+def check_image(image, what):
+    mean = float(image.mean())
+    check(bool(torch.isfinite(image).all()) and image.shape == (512, 512, 3),
+          f"{what} image is finite, 512 x 512 x 3")
+    check(0.05 < mean < 3.0, f"{what} image mean {mean:.4f} is plausible")
+
+
+def mean_entry(per_query):
+    """ms, plain_ms and bound_ms averaged over one frame's queries."""
+    n = len(per_query)
+    ms_b = sum(r["bound_ms"] for r in per_query) / n
+    by = [r["bound_by"] for r in per_query]
+    return dict(ms=sum(r["ms"] for r in per_query) / n,
+                plain_ms=sum(r["plain_ms"] for r in per_query) / n,
+                bound_ms=ms_b, bound_by=max(set(by), key=by.count))
+
+
+def pallas_phase(smi, cfg):
+    """The "pallas" path: capture, parity, serving, times.  Returns the
+    kernel's JSON entry and the split scene."""
+    scene, cam = bunny_gltf_scene(max_blas_tris=8192, device="cuda")
+    mats = camera_matrices(cam, 1.0)
+    nd = int(scene.mesh.draw_count)
+    check(nd >= 3, f"the split bunny has {nd} draws (>= 3)")
+    frame_fn = dispatch.get_render_frame("pallas", scene, cfg)
+    check(frame_fn is wavefront.render_frame_pallas,
+          "dispatch 'pallas' picks the BVH-walk kernel path")
+    queries = []
+
+    def capture(o, d, t_init, mesh):
+        queries.append([x.clone() for x in (o, d, t_init)])
+        return traversal.bvh_walk_kernel(o, d, t_init, mesh)
+
+    with torch.no_grad():
+        golden.render_frame(scene, mats, cfg, 0, intersect_fn=wavefront
+                            .make_intersect_fn_pallas(scene, capture))
+    check(len(queries) == cfg.max_bounces + 1,
+          f"one frame makes {cfg.max_bounces + 1} BVH-walk queries")
+    R = queries[0][0].shape[0]
+    print(f"[pallas] {nd} draws, {scene.mesh.bvh_left.shape[0]} node slots, "
+          f"tree depth {traversal.tree_depth(scene.mesh)}, {R} rays per "
+          "query", flush=True)
+
+    parity, per_query = [], []
+    for q, (o, d, t0) in enumerate(queries):
+        ck = torch.zeros((R, traversal.COUNT_COLS), dtype=torch.int32,
+                         device="cuda")
+        cp = torch.zeros_like(ck)
+        tk, ok = traversal.bvh_walk_kernel(o, d, t0, scene.mesh, ck)
+        tp, op = traversal.bvh_walk_plain(o, d, t0, scene.mesh, cp)
+        torch.cuda.synchronize()
+        same = ok == op
+        rec = dict(query=q, bitwise=bool(torch.equal(tk, tp)
+                                         and torch.equal(ok, op)),
+                   offsets_equal=float(same.float().mean()),
+                   t_equal_where_offsets_equal=bool(torch.equal(tk[same],
+                                                                tp[same])),
+                   max_abs_err=float((tk - tp).abs().max()),
+                   counts_equal=bool(torch.equal(ck, cp)),
+                   hits=int((op >= 0).sum()))
+        parity.append(rec)
+        print(f"[parity] pallas query {q}: {json.dumps(rec)}", flush=True)
+        check(rec["offsets_equal"] >= 0.9999
+              and rec["t_equal_where_offsets_equal"],
+              f"pallas query {q}: offsets equal on >= 99.99% of rays, t "
+              "equal where they are")
+        pops, inner, tests = (int(x) for x in ck.long().sum(0))
+        ops = pops * OPS_PER_POP + inner * OPS_PER_INNER + tests * OPS_PER_TEST
+        m = scene.mesh
+        nb = nbytes(o, d, t0, tk, ok, m.bvh_min, m.bvh_max, m.bvh_left,
+                    m.bvh_count, m.indices, m.vertices)
+        bound_ms, bound_by = bound(ops, nb)
+        ms = event_ms(lambda: traversal.bvh_walk_kernel(o, d, t0, m), 20)
+        plain = event_ms(lambda: traversal.bvh_walk_plain(o, d, t0, m), 1)
+        per_query.append(dict(query=q, ms=ms, plain_ms=plain,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              nodes_popped=pops, inner_entered=inner,
+                              tris_tested=tests, bytes=nb))
+        print(f"[kernel] bvh_walk query {q}: {ms:.3f} ms (plain "
+              f"{plain:.1f} ms), bound {bound_ms:.4f} ms ({bound_by}); "
+              f"{pops / R:.1f} nodes popped, {inner / R:.1f} inner entered, "
+              f"{tests / R:.1f} triangles tested per ray, on {smi}",
+              flush=True)
+
+    traversal.bvh_walk_kernel.launches = 0
+    image, frame_ms, peak = serve(scene, mats, cfg, frame_fn)
+    launches = traversal.bvh_walk_kernel.launches
+    check(launches == 4 * (cfg.max_bounces + 1),
+          f"4 'pallas' frames launched the BVH-walk kernel {launches} times")
+    check_image(image, "pallas bunny")
+    segments = 512 * 512 * (cfg.max_bounces + 1)
+    print(f"[pallas] {frame_ms:.2f} ms/frame, "
+          f"{segments / (frame_ms / 1e3) / 1e6:.2f} Mrays/s, peak "
+          f"{peak:.2f} GiB, on {smi}", flush=True)
+
+    with torch.no_grad():
+        a = wavefront.render_frame_pallas(scene, mats, cfg, 5)
+        b = sweep.render_frame(scene, mats, cfg, 5)
+    agree = image_agreement(a, b, 1e-3)
+    check(agree >= 0.99, f"the 'pallas' frame matches the sweep frame to "
+          f"1e-3 on {agree:.4f} of pixels (>= 0.99)")
+
+    small = cfg.replace(width=64, height=64)
+    with torch.no_grad():
+        ref = wavefront.render_frame_pallas(scene, mats, small, 1)
+        walks = {w: sync_time(lambda: wavefront.render_frame(
+            scene, mats, small.replace(traversal=w), 1)) for w in
+            ("stack", "stackless")}
+    check(torch.equal(walks["stack"][0], ref),
+          "64 x 64 'wavefront' stack frame equals the 'pallas' frame")
+    agree = image_agreement(walks["stackless"][0], ref, 1e-3)
+    check(agree >= 0.99, "64 x 64 'wavefront' stackless frame matches the "
+          f"'pallas' frame to 1e-3 on {agree:.4f} of pixels (>= 0.99)")
+    print("[wavefront] 64 x 64 frames: stack "
+          f"{walks['stack'][1] * 1e3:.1f} ms, stackless "
+          f"{walks['stackless'][1] * 1e3:.1f} ms (plain PyTorch), on {smi}",
+          flush=True)
+
+    return dict(
+        name="bvh_walk", route="cuda",
+        source="wc_path_tracer_tpu_torch/kernels/csrc/bvh_walk.cu",
+        replaces="wc_path_tracer_tpu/kernels/traversal.py:108",
+        launches=launches,
+        max_abs_err=max(r["max_abs_err"] for r in parity),
+        **mean_entry(per_query),
+        library_ms=None,
+        ms_note="mean per launch over one 512^2 'pallas' frame's 5 queries",
+        parity=parity, per_query=per_query, card=smi,
+        frame_ms=frame_ms,
+        mrays_s=segments / (frame_ms / 1e3) / 1e6, peak_gib=peak,
+        wavefront_64_ms={w: t * 1e3 for w, (_, t) in walks.items()},
+        draws=nd), scene
+
+
+def mxu_phase(smi, scene, mats, cfg):
+    """The cluster_kernel="mxu" path: capture, parity (against its twin and
+    against the MT kernel), serving, times.  Returns the kernel's JSON
+    entry."""
+    cfg = cfg.replace(cluster_kernel="mxu")
+    queries = []
+
+    def capture(nact, clist, bt0, rays, prev, trisW, mat_tbl):
+        queries.append([x.clone() for x in (nact, clist, bt0, rays, prev,
+                                            trisW, mat_tbl)])
+        return cluster.cluster_sweep_mxu_kernel(nact, clist, bt0, rays, prev,
+                                                trisW, mat_tbl)
+
+    with torch.no_grad():
+        golden.render_frame(scene, mats, cfg, 0, intersect_fn=sweep
+                            .make_intersect_fn(scene, cfg, block_fn=capture))
+    check(len(queries) == cfg.max_bounces + 1,
+          f"one mxu frame makes {cfg.max_bounces + 1} sweep queries")
+    RB, B = queries[0][3].shape[:2]
+    tris_mt = cluster.build_cluster_tables(scene.mesh)[0]
+
+    parity, per_query = [], []
+    for q, args in enumerate(queries):
+        vk = torch.zeros(RB, dtype=torch.int32, device="cuda")
+        vp = torch.zeros_like(vk)
+        k = cluster.cluster_sweep_mxu_kernel(*args, vk)
+        p = cluster.cluster_sweep_mxu_plain(*args, vp)
+        mt = cluster.cluster_sweep_kernel(*args[:5], tris_mt)
+        torch.cuda.synchronize()
+        hk, hm = k[..., 11] >= 0, mt[..., 11] >= 0
+        both = hk & hm
+        dt = (k[..., 0] - mt[..., 0]).abs()[both]
+        t_mt = mt[..., 0][both]
+        # the plane form's t = -P / Q loses digits where the ray grazes the
+        # plane (Q = n.d cancels) and, on bounce rays that start on a
+        # surface, where t is tiny (P cancels): hold t to 1e-4 max(t, 1) on
+        # every ray both kernels hit and to 1e-5 max(t, 1) on 99.9 % of them
+        scaled = dt / t_mt.clamp_min(1.0)
+        rec = dict(query=q, bitwise=bool(torch.equal(k, p)),
+                   max_abs_err=float((k - p).abs().max()),
+                   visits_equal=bool(torch.equal(vk, vp)),
+                   visits=int(vk.sum()), hits=int(hk.sum()),
+                   hits_differ_from_mt=int((hk != hm).sum()),
+                   max_rel_dt_vs_mt=float((dt / t_mt).max()) if dt.numel()
+                   else 0.0,
+                   max_dt_over_max_t_1=float(scaled.max()) if dt.numel()
+                   else 0.0,
+                   t_within_1e5_vs_mt=float((scaled <= 1e-5).float().mean())
+                   if dt.numel() else 1.0,
+                   slots_equal_mt=float((k[..., 11] == mt[..., 11])
+                                        .float().mean()))
+        parity.append(rec)
+        print(f"[parity] mxu query {q}: {json.dumps(rec)}", flush=True)
+        check(rec["bitwise"] and rec["visits_equal"],
+              f"mxu query {q}: kernel equals its plain twin bit for bit")
+        check(rec["hits_differ_from_mt"] <= hk.numel() // 10000
+              and rec["max_dt_over_max_t_1"] <= 1e-4
+              and rec["t_within_1e5_vs_mt"] >= 0.999,
+              f"mxu query {q}: hits equal the MT kernel's on >= 99.99% of "
+              "rays; where both hit, |dt| <= 1e-4 max(t, 1), and <= 1e-5 "
+              "max(t, 1) on >= 99.9% of them")
+        visits = int(vk.sum())
+        ops = visits * B * cluster.CLUSTER_TRIS * OPS_PER_PLANE_TEST
+        bound_ms, bound_by = bound(ops, nbytes(*args) + nbytes(args[4]))
+        ms = event_ms(lambda: cluster.cluster_sweep_mxu_kernel(*args), 20)
+        plain = event_ms(lambda: cluster.cluster_sweep_mxu_plain(*args), 1)
+        per_query.append(dict(query=q, ms=ms, plain_ms=plain,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              visits=visits))
+        print(f"[kernel] cluster_sweep_mxu query {q}: {ms:.3f} ms (plain "
+              f"{plain:.1f} ms), bound {bound_ms:.3f} ms ({bound_by}), "
+              f"{visits} block-cluster visits, on {smi}", flush=True)
+
+    cluster.cluster_sweep_mxu_kernel.launches = 0
+    cluster.cluster_sweep_kernel.launches = 0
+    image, frame_ms, peak = serve(scene, mats, cfg, sweep.render_frame)
+    launches = cluster.cluster_sweep_mxu_kernel.launches
+    check(launches == 4 * (cfg.max_bounces + 1)
+          and cluster.cluster_sweep_kernel.launches == 0,
+          f"4 mxu frames launched the plane-form kernel {launches} times "
+          "and the MT kernel none")
+    check_image(image, "mxu bunny")
+    segments = 512 * 512 * (cfg.max_bounces + 1)
+    print(f"[mxu] {frame_ms:.2f} ms/frame, "
+          f"{segments / (frame_ms / 1e3) / 1e6:.2f} Mrays/s, peak "
+          f"{peak:.2f} GiB, on {smi}", flush=True)
+    with torch.no_grad():
+        a = sweep.render_frame(scene, mats, cfg, 5)
+        b = sweep.render_frame(scene, mats, cfg.replace(cluster_kernel="mt"),
+                               5)
+    agree = image_agreement(a, b, 1e-3)
+    exact = image_agreement(a, b, 2e-5)
+    print(f"[mxu] frame vs MT frame: {exact:.6f} of pixels within 2e-5, "
+          f"{agree:.6f} within 1e-3", flush=True)
+    check(agree >= 0.99, "the mxu frame matches the MT frame to 1e-3 on "
+          f"{agree:.4f} of pixels (>= 0.99)")
+    return dict(
+        name="cluster_sweep_mxu", route="cuda",
+        source="wc_path_tracer_tpu_torch/kernels/csrc/cluster_sweep_mxu.cu",
+        replaces="wc_path_tracer_tpu/kernels/cluster.py:421",
+        launches=launches,
+        max_abs_err=max(r["max_abs_err"] for r in parity),
+        **mean_entry(per_query),
+        library_ms=None,
+        ms_note="mean per launch over one 512^2 mxu frame's 5 queries",
+        parity=parity, per_query=per_query, card=smi, frame_ms=frame_ms,
+        mrays_s=segments / (frame_ms / 1e3) / 1e6, peak_gib=peak,
+        frame_vs_mt_within_2e5=exact)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from wc_path_tracer_tpu_torch import RenderConfig
-    from wc_path_tracer_tpu_torch.kernels import build, cluster
-    from wc_path_tracer_tpu_torch.models.builtin import cornell_box_scene
-    from wc_path_tracer_tpu_torch.models.procedural import bunny_gltf_scene
-    from wc_path_tracer_tpu_torch.render import dispatch, golden, sweep
-    from wc_path_tracer_tpu_torch.scene.camera import camera_matrices
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -196,28 +482,12 @@ def main() -> int:
           "kernel equals sweep_reference except on exact t-ties")
 
     # -- 4. the serving path: 4 progressive frames through dispatch auto --
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     cluster.cluster_sweep_kernel.launches = 0
-    image = None
-
-    def serve():
-        img = None
-        with torch.no_grad():
-            for f in range(4):
-                img = golden.render_step(scene, mats, cfg, f, img)
-        return img
-
-    image, serve_s = sync_time(serve)
+    image, frame_ms, peak_gib = serve(scene, mats, cfg, None)
     launches = cluster.cluster_sweep_kernel.launches
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    mean = float(image.mean())
     check(launches == 4 * (cfg.max_bounces + 1),
           f"4 frames launched the cluster-sweep kernel {launches} times")
-    check(bool(torch.isfinite(image).all()) and image.shape == (512, 512, 3),
-          "bunny image is finite, 512 x 512 x 3")
-    check(0.05 < mean < 3.0, f"bunny image mean {mean:.4f} is plausible")
-    frame_ms = serve_s / 4 * 1e3
+    check_image(image, "bunny")
     segments = 512 * 512 * (cfg.max_bounces + 1)
     print(f"[bunny] {frame_ms:.2f} ms/frame, "
           f"{segments / (frame_ms / 1e3) / 1e6:.2f} Mrays/s "
@@ -265,7 +535,13 @@ def main() -> int:
           f"{1024 * 1024 * 5 / (cms / 1e3) / 1e6:.2f} Mrays/s, "
           f"peak {cpeak:.2f} GiB, on {smi}", flush=True)
 
-    # -- 6. kernel times against the bound, per launch ---------------------
+    # -- 6. the "pallas" path: the split bunny through the BVH walk ---------
+    b3, split_scene = pallas_phase(smi, cfg)
+
+    # -- 7. the plane-form sweep: cluster_kernel="mxu" ----------------------
+    b2 = mxu_phase(smi, scene, mats, cfg)
+
+    # -- 8. B1 kernel times against the bound, per launch -------------------
     per_query = []
     for q, args in enumerate(queries):
         visits = torch.zeros(RB, dtype=torch.int32, device="cuda")
@@ -273,44 +549,41 @@ def main() -> int:
         ms = event_ms(lambda: cluster.cluster_sweep_kernel(*args), 20)
         plain = event_ms(lambda: cluster.cluster_sweep_plain(*args), 2)
         ops = int(visits.sum()) * B * cluster.CLUSTER_TRIS * OPS_PER_TEST
-        nbytes = sum(x.numel() * x.element_size() for x in args) \
-            + args[4].numel() * 4                       # + the payload
-        ops_ms = ops / H100_FP32_FLOPS * 1e3
-        bytes_ms = nbytes / H100_HBM_BYTES * 1e3
-        per_query.append(dict(query=q, ms=ms, plain_ms=plain, ops_ms=ops_ms,
-                              bytes_ms=bytes_ms, visits=int(visits.sum())))
+        bound_ms, bound_by = bound(ops, nbytes(*args) + nbytes(args[4]))
+        per_query.append(dict(query=q, ms=ms, plain_ms=plain,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              visits=int(visits.sum())))
         print(f"[kernel] query {q}: {ms:.3f} ms (plain {plain:.1f} ms), "
-              f"bound {max(ops_ms, bytes_ms):.3f} ms "
-              f"({'operations' if ops_ms >= bytes_ms else 'bytes'}), "
+              f"bound {bound_ms:.3f} ms ({bound_by}), "
               f"{int(visits.sum())} block-cluster visits, on {smi}",
               flush=True)
 
-    print("[kernel] no PyTorch call computes a closest-hit sweep, so "
-          "cluster_sweep has no library time (library_ms null)", flush=True)
+    print("[kernel] no PyTorch call computes a closest-hit sweep or a BVH "
+          "walk, so no kernel has a library time (library_ms null)",
+          flush=True)
 
-    # -- 7. where one frame's device time goes (torch.profiler) -----------
+    # -- 9. where one frame's device time goes (torch.profiler) -----------
+    mxu_cfg = cfg.replace(cluster_kernel="mxu")
     with torch.no_grad():
         profiles = {label: device_profile(smi, label, fn) for label, fn in (
             ("bunny 512^2 frame",
              lambda: sweep.render_frame(scene, mats, cfg, 7)),
+            ("bunny 512^2 mxu frame",
+             lambda: sweep.render_frame(scene, mats, mxu_cfg, 7)),
+            ("bunny 512^2 'pallas' frame",
+             lambda: wavefront.render_frame_pallas(split_scene, mats, cfg,
+                                                   7)),
             ("cornell 1024^2 frame",
              lambda: golden.render_frame(cscene, cmats, ccfg, 7)))}
 
-    def mean_of(key):
-        return sum(r[key] for r in per_query) / len(per_query)
-
-    ops_ms, bytes_ms = mean_of("ops_ms"), mean_of("bytes_ms")
     print(json.dumps({"kernels": [{
         "name": "cluster_sweep",
         "route": "cuda",
         "source": "wc_path_tracer_tpu_torch/kernels/csrc/cluster_sweep.cu",
-        "replaces": "wc_path_tracer_tpu/kernels/cluster.py:273",
+        "replaces": "wc_path_tracer_tpu/kernels/cluster.py:274",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in parity),
-        "ms": mean_of("ms"),
-        "plain_ms": mean_of("plain_ms"),
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        **mean_entry(per_query),
         "library_ms": None,
         "ms_note": "mean per launch over one 512^2 bunny frame's 5 queries",
         "parity": parity,
@@ -324,7 +597,7 @@ def main() -> int:
         "cornell_peak_gib": cpeak,
         "build_s": build_s,
         "profiles": profiles,
-    }]}))
+    }, b2, b3]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch twin, on the card.
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
 
 Marked ``gpu``; each test skips (from inside the test) when no CUDA card is
 present.  This file imports no JAX, so on a machine without JAX it runs
@@ -12,9 +12,9 @@ import pytest
 import torch
 
 from wc_path_tracer_tpu_torch import RenderConfig
-from wc_path_tracer_tpu_torch.kernels import cluster
+from wc_path_tracer_tpu_torch.kernels import cluster, traversal
 from wc_path_tracer_tpu_torch.models.procedural import bunny_like_scene
-from wc_path_tracer_tpu_torch.render import golden, sweep
+from wc_path_tracer_tpu_torch.render import golden, sweep, wavefront
 from wc_path_tracer_tpu_torch.scene.camera import camera_matrices
 
 
@@ -95,3 +95,92 @@ def test_sweep_frame_kernel_equals_plain_twin():
         for fn in (None, cluster.cluster_sweep_plain)]
     assert torch.isfinite(imgs[0]).all()
     assert torch.equal(imgs[0], imgs[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ray_block", [512, 64])
+def test_mxu_kernel_matches_plain_twin(ray_block):
+    _need_card()
+    scene, _ = bunny_like_scene(3, device="cuda")
+    tw, cmin, cmax, mat = cluster.build_cluster_tables_mxu(scene.mesh)
+    o, d, t0 = _rays(3000, 1, "cuda")
+    seen = {}
+
+    def both(nact, clist, bt0, rays, prev, trisW, mat_tbl):
+        vk = torch.zeros_like(nact)
+        vp = torch.zeros_like(nact)
+        args = (nact, clist, bt0, rays, prev, trisW, mat_tbl)
+        k = cluster.cluster_sweep_mxu_kernel(*args, vk)
+        p = cluster.cluster_sweep_mxu_plain(*args, vp)
+        seen.update(k=k, p=p, vk=vk, vp=vp)
+        return k
+
+    before = cluster.cluster_sweep_mxu_kernel.launches
+    cluster.cluster_sweep(o, d, t0, tw, cmin, cmax, ray_block=ray_block,
+                          block_fn=both, variant="mxu", mat_tbl=mat)
+    torch.cuda.synchronize()
+    assert cluster.cluster_sweep_mxu_kernel.launches == before + 1
+    assert torch.equal(seen["k"], seen["p"])
+    assert torch.equal(seen["vk"], seen["vp"])
+    assert int((seen["k"][..., 11] >= 0).sum()) > 500
+
+
+@pytest.mark.gpu
+def test_mxu_frame_kernel_equals_plain_twin():
+    _need_card()
+    scene, cam = bunny_like_scene(3, device="cuda")
+    mats = camera_matrices(cam, 1.0)
+    cfg = RenderConfig(width=64, height=64, max_bounces=3,
+                       cluster_kernel="mxu")
+    imgs = [golden.render_frame(
+        scene, mats, cfg, 2,
+        intersect_fn=sweep.make_intersect_fn(scene, cfg, block_fn=fn))
+        for fn in (None, cluster.cluster_sweep_mxu_plain)]
+    assert torch.isfinite(imgs[0]).all()
+    assert torch.equal(imgs[0], imgs[1])
+
+
+@pytest.mark.gpu
+def test_bvh_walk_kernel_matches_plain_walk():
+    _need_card()
+    scene, _ = bunny_like_scene(3, max_blas_tris=256, device="cuda")
+    assert int(scene.mesh.draw_count) >= 5
+    o, d, t0 = _rays(3000, 2, "cuda")
+    ck = torch.zeros((3000, traversal.COUNT_COLS), dtype=torch.int32,
+                     device="cuda")
+    cp = torch.zeros_like(ck)
+    before = traversal.bvh_walk_kernel.launches
+    tk, ok = traversal.bvh_walk_kernel(o, d, t0, scene.mesh, ck)
+    tp, op = traversal.bvh_walk_plain(o, d, t0, scene.mesh, cp)
+    torch.cuda.synchronize()
+    assert traversal.bvh_walk_kernel.launches == before + 1
+    assert torch.equal(ok, op) and torch.equal(tk, tp)
+    assert torch.equal(ck, cp)
+    assert int((ok >= 0).sum()) > 500
+
+
+@pytest.mark.gpu
+def test_bvh_walk_wrapper_rejects_bad_inputs():
+    _need_card()
+    scene, _ = bunny_like_scene(2, device="cuda")
+    o, d, t0 = _rays(64, 3, "cuda")
+    with pytest.raises(ValueError, match="origin"):
+        traversal.bvh_walk_kernel(o.double(), d, t0, scene.mesh)
+    with pytest.raises(ValueError, match="t_init"):
+        traversal.bvh_walk_kernel(o, d, t0[:10], scene.mesh)
+
+
+@pytest.mark.gpu
+def test_pallas_frame_kernel_equals_plain_walk():
+    _need_card()
+    scene, cam = bunny_like_scene(3, max_blas_tris=256, device="cuda")
+    mats = camera_matrices(cam, 1.0)
+    cfg = RenderConfig(width=64, height=64, max_bounces=3)
+    img_k = wavefront.render_frame_pallas(scene, mats, cfg, 2)
+    img_p = golden.render_frame(
+        scene, mats, cfg, 2, intersect_fn=wavefront.make_intersect_fn_pallas(
+            scene, walk_fn=traversal.bvh_walk_plain))
+    img_w = wavefront.render_frame(scene, mats, cfg.replace(traversal="stack"),
+                                   2)
+    assert torch.isfinite(img_k).all()
+    assert torch.equal(img_k, img_p) and torch.equal(img_k, img_w)

@@ -176,15 +176,9 @@ def test_render_step_accumulates_running_mean():
     torch.testing.assert_close(img, 0.5 * f0 + 0.5 * f1)
 
 
-@pytest.mark.parametrize("option", ["use_nee", "compact", "edge_grads",
-                                    "mxu", "wavefront", "pallas"])
+@pytest.mark.parametrize("option", ["use_nee", "compact", "edge_grads"])
 def test_unported_options_raise(option):
     _, _, tscene, tm = _case("bunny")
     cfg = RenderConfig(**CFG)
-    if option in ("wavefront", "pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dispatch.get_render_frame(option, tscene, cfg)
-        return
-    kw = {"mxu": {"cluster_kernel": "mxu"}}.get(option, {option: True})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sweep.render_frame(tscene, tm, cfg.replace(**kw), FRAME)
+        sweep.render_frame(tscene, tm, cfg.replace(**{option: True}), FRAME)

@@ -34,6 +34,19 @@ SIGNATURES = {
         "wc_cluster_sweep": ([_P] * 8 + [_I] * 3 + [_P], _I),
         "wc_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "cluster_sweep_mxu": {
+        # nact, clist, bt0, rays, prev, trisW, mat_tbl, out, visits, blocks,
+        # ray_block, clusters, stream
+        "wc_cluster_sweep_mxu": ([_P] * 9 + [_I] * 3 + [_P], _I),
+        "wc_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "bvh_walk": {
+        # origin, direction, t_init, bvh_min, bvh_max, bvh_left, bvh_count,
+        # indices, vertices, draw node/index/vertex offsets, draw_count,
+        # t_out, off_out, counts, rays, draw capacity, max_leaf_tris, stream
+        "wc_bvh_walk": ([_P] * 16 + [_I] * 3 + [_P], _I),
+        "wc_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

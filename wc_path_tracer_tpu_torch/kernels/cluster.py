@@ -20,6 +20,11 @@ twin ``cluster_sweep_plain``, which repeats the kernel's arithmetic, visit
 order, tie rule and early exit exactly.  ``sweep_reference`` is an
 independent brute-force oracle (global first minimum).
 
+``variant="mxu"`` swaps step 4 for the plane-form test
+(``cluster_sweep_mxu_kernel``, csrc/cluster_sweep_mxu.cu, and its twin
+``cluster_sweep_mxu_plain``) over the tables of ``build_cluster_tables_mxu``;
+its hits agree with Möller-Trumbore's to f32 roundoff, not bitwise.
+
 The winner payload is (R, 16) float32: 0 t, 1:10 winner vertices
 ax ay az bx by bz cx cy cz, 10 material id, 11 bank-global slot id (-1 =
 none, both as floats), 12:16 zero.  Rays that find nothing closer than
@@ -39,6 +44,8 @@ CLUSTER_ROWS = 16    # f32 rows per cluster slab: 9 coordinates, material, pad
 RAY_BLOCK = 512      # rays per kernel block (the JAX package's default)
 PAYLOAD_COLS = 16
 CULL_MATERIALIZE_ELEMS = 64 * 1024 * 1024   # largest (rays x clusters) cull
+MXU_ROWS = 8         # K rows of a plane-form slab: o (3), d (3), 1, pad
+MXU_FIELDS = 6       # Q, P, Bu, Au, Bv, Av
 
 
 def _pad_rows(x, n: int, fill=0):
@@ -100,6 +107,52 @@ def build_cluster_tables(mesh):
     return tables_from_coords(*_padded_tri_coords(mesh))
 
 
+def mxu_tables_from_coords(a, b, c, mat, lv, C):
+    """Plane-form tables: (trisW (C * 8, 768), cmin, cmax, mat_tbl (C, 128)).
+
+    Per triangle the barycentrics are affine in the hit point x = o + t d:
+    with n = e1 x e2 and m = n.n, u(x) = au.x + bu with au = (e2 x n) / m,
+    v(x) = av.x + bv with av = (n x e1) / m, and the plane is n.x + d0 = 0.
+    So per (ray, triangle) six dot products of [o, d, 1, 0] with a column
+    of the cluster's (8, 768) slab give Q = n.d, P = n.o + d0, Bu = au.d,
+    Au = au.o + bu, Bv = av.d, Av = av.o + bv; slab column f * 128 + l holds
+    field f of slot l.  Dead slots get n = au = av = 0, so Q = 0 and every
+    test on them is false.  The AABBs are ``tables_from_coords``'.
+    """
+    e1 = b - a
+    e2 = c - a
+    n = ix.cross(e1, e2)
+    m = ix.dot3(n, n)
+    m_safe = torch.where(m > 0.0, m, 1.0)[:, None]
+    au = ix.cross(e2, n) / m_safe
+    av = ix.cross(n, e1) / m_safe
+    d0 = -ix.dot3(n, a)
+    bu = -ix.dot3(au, a)
+    bv = -ix.dot3(av, a)
+    z = torch.zeros_like(d0)
+    zero3 = torch.zeros_like(n)
+
+    def col(o_part, d_part, c_part):          # rows: o (3), d (3), 1, pad
+        return torch.stack([o_part[:, 0], o_part[:, 1], o_part[:, 2],
+                            d_part[:, 0], d_part[:, 1], d_part[:, 2],
+                            c_part, z], dim=1)              # (Tpad, 8)
+
+    W = torch.stack([col(zero3, n, z), col(n, zero3, d0),
+                     col(zero3, au, z), col(au, zero3, bu),
+                     col(zero3, av, z), col(av, zero3, bv)], dim=2)
+    trisW = W.view(C, CLUSTER_TRIS, MXU_ROWS, MXU_FIELDS) \
+        .permute(0, 2, 3, 1) \
+        .reshape(C * MXU_ROWS, MXU_FIELDS * CLUSTER_TRIS).contiguous()
+    _, cmin, cmax = tables_from_coords(a, b, c, mat, lv, C)
+    return trisW, cmin, cmax, mat.view(C, CLUSTER_TRIS).contiguous()
+
+
+def build_cluster_tables_mxu(mesh):
+    """(trisW, cmin, cmax, mat_tbl) from a MeshBank (see
+    mxu_tables_from_coords)."""
+    return mxu_tables_from_coords(*_padded_tri_coords(mesh))
+
+
 def sweep_reference(origin, direction, t_init, tris, cmin, cmax):
     """Brute-force oracle with the sweep's payload: every ray against every
     slot, global first minimum.  It equals the sweep except on exact f32
@@ -156,16 +209,31 @@ def _cull(origin, direction, t_best, cmin, cmax, RB: int, ray_block: int):
 
 
 def cluster_sweep(origin, direction, t_init, tris, cmin, cmax,
-                  ray_block: int = RAY_BLOCK, block_fn=None):
+                  ray_block: int = RAY_BLOCK, block_fn=None,
+                  variant: str = "mt", mat_tbl=None):
     """Closest hit of R rays against clustered triangles -> (R, 16) payload.
 
     origin/direction (R, 3) f32, t_init (R,) f32 the search bound (e.g. the
-    closest sphere's t; -KINF disables a ray).  ``block_fn`` sweeps the
-    blocks; the default ``cluster_sweep_kernel`` launches the CUDA kernel on
-    CUDA tensors.  A discrete search: the caller re-shades the winner.
+    closest sphere's t; -KINF disables a ray).  ``variant`` "mt" takes the
+    tables of ``build_cluster_tables``; "mxu" the plane-form ``tris`` and
+    ``mat_tbl`` of ``build_cluster_tables_mxu`` (its payload's vertex
+    columns are zero).  ``block_fn`` sweeps the blocks; the default is the
+    variant's kernel wrapper, which launches the CUDA kernel on CUDA
+    tensors.  A discrete search: the caller re-shades the winner.
     """
+    if variant == "mt":
+        tbl = (tris,)
+        default_fn = cluster_sweep_kernel
+    elif variant == "mxu":
+        if mat_tbl is None:
+            raise ValueError("variant='mxu' requires mat_tbl from "
+                             "build_cluster_tables_mxu")
+        tbl = (tris, mat_tbl)
+        default_fn = cluster_sweep_mxu_kernel
+    else:
+        raise ValueError(f"unknown cluster_sweep variant {variant!r}")
     if block_fn is None:
-        block_fn = cluster_sweep_kernel
+        block_fn = default_fn
     R = origin.shape[0]
     pad = (-R) % ray_block
     if pad:
@@ -184,27 +252,19 @@ def cluster_sweep(origin, direction, t_init, tris, cmin, cmax,
                      + [zeros] * 8, dim=1).view(RB, ray_block, PAYLOAD_COLS)
     prev = torch.cat([t_init[:, None]] + [zeros] * 10 + [zeros - 1.0]
                      + [zeros] * 4, dim=1).view(RB, ray_block, PAYLOAD_COLS)
-    pay = block_fn(nact, order.to(torch.int32), bt0_sorted, rays, prev, tris)
+    pay = block_fn(nact, order.to(torch.int32), bt0_sorted, rays, prev, *tbl)
     return pay.view(Rp, PAYLOAD_COLS)[:R]
 
 
-def cluster_sweep_plain(nact, clist, bt0, rays, prev, tris, visits=None):
-    """Plain PyTorch twin of the CUDA kernel, vectorized over blocks.
-
-    Same inputs as ``cluster_sweep_kernel``: per block b the active count
-    ``nact[b]``, cluster ids ``clist[b]`` and entry distances ``bt0[b]``
-    sorted front to back, rays (RB, B, 16) = [o, d, t_init, t_lim, 0 x 8],
-    the initial payload ``prev`` (RB, B, 16) and the table ``tris``.  Step j
-    tests every still-running block's j-th cluster, in the kernel's
-    operation order, then applies its update rule (strict ``<``, lowest
-    lane) and its early exit, so payloads match the kernel exactly.
-    ``visits`` (RB,) int32, if given, receives the clusters each block
-    visited.
-    """
+def _sweep_blocks(nact, clist, bt0, rays, prev, test, visits=None):
+    """The block loop both plain twins share -> (t_best (RB, B), win (RB, B)
+    winner slot id or -1).  Step j tests every still-running block's j-th
+    cluster c with ``test(c)`` -> (t, hit) each (RB, B, 128), keeps the
+    closest hit under strict ``<`` (lowest lane on a tie), then stops each
+    block once every ray's min(t_best, t_lim) is at or before its next
+    cluster's entry.  ``visits`` (RB,) int32, if given, receives the
+    clusters each block visited."""
     RB, B, _ = rays.shape
-    C = tris.shape[0] // CLUSTER_ROWS
-    slabs = tris.view(C, CLUSTER_ROWS, CLUSTER_TRIS)
-    ox, oy, oz, dx, dy, dz = (rays[:, :, k:k + 1] for k in range(6))
     t_lim = rays[:, :, 7]
     t_best = prev[:, :, 0].clone()
     win = torch.full((RB, B), -1, dtype=torch.int64, device=rays.device)
@@ -217,13 +277,7 @@ def cluster_sweep_plain(nact, clist, bt0, rays, prev, tris, visits=None):
         if not bool(running.any()):
             break
         c = clist[:, j]
-        slab = slabs[c]                                     # (RB, 16, 128)
-        ax, ay, az = slab[:, 0:1], slab[:, 1:2], slab[:, 2:3]   # (RB, 1, 128)
-        t, hit = ix._moller_trumbore(
-            ox, oy, oz, dx, dy, dz,
-            slab[:, 3:4] - ax, slab[:, 4:5] - ay, slab[:, 5:6] - az,
-            slab[:, 6:7] - ax, slab[:, 7:8] - ay, slab[:, 8:9] - az,
-            ax, ay, az)                                     # (RB, B, 128)
+        t, hit = test(c)                                    # (RB, B, 128)
         tm = torch.where(hit & (t < t_best[..., None]), t, KINF)
         t_min = torch.amin(tm, dim=-1)
         sel = torch.amin(torch.where(tm == t_min[..., None], lane,
@@ -239,14 +293,91 @@ def cluster_sweep_plain(nact, clist, bt0, rays, prev, tris, visits=None):
         running = running & go & (j + 1 < nact)
     if visits is not None:
         visits.copy_(steps.to(torch.int32))
-    found = win >= 0
+    return t_best, win
+
+
+def _winner_payload(t_best, win, cols, prev):
+    """[t, cols (10), slot id, 0 x 4] where a winner was found, else prev."""
+    new = torch.cat([t_best[..., None], cols,
+                     win.to(torch.float32)[..., None],
+                     torch.zeros(win.shape + (4,), dtype=prev.dtype,
+                                 device=prev.device)], dim=-1)
+    return torch.where((win >= 0)[..., None], new, prev)
+
+
+def cluster_sweep_plain(nact, clist, bt0, rays, prev, tris, visits=None):
+    """Plain PyTorch twin of the CUDA kernel, vectorized over blocks.
+
+    Same inputs as ``cluster_sweep_kernel``: per block b the active count
+    ``nact[b]``, cluster ids ``clist[b]`` and entry distances ``bt0[b]``
+    sorted front to back, rays (RB, B, 16) = [o, d, t_init, t_lim, 0 x 8],
+    the initial payload ``prev`` (RB, B, 16) and the table ``tris``.  Each
+    visited cluster is tested in the kernel's operation order, with its
+    update rule and early exit (``_sweep_blocks``), so payloads match the
+    kernel exactly.  ``visits`` (RB,) int32, if given, receives the
+    clusters each block visited.
+    """
+    C = tris.shape[0] // CLUSTER_ROWS
+    slabs = tris.view(C, CLUSTER_ROWS, CLUSTER_TRIS)
+    ox, oy, oz, dx, dy, dz = (rays[:, :, k:k + 1] for k in range(6))
+
+    def test(c):
+        slab = slabs[c]                                     # (RB, 16, 128)
+        ax, ay, az = slab[:, 0:1], slab[:, 1:2], slab[:, 2:3]   # (RB, 1, 128)
+        return ix._moller_trumbore(
+            ox, oy, oz, dx, dy, dz,
+            slab[:, 3:4] - ax, slab[:, 4:5] - ay, slab[:, 5:6] - az,
+            slab[:, 6:7] - ax, slab[:, 7:8] - ay, slab[:, 8:9] - az,
+            ax, ay, az)
+
+    t_best, win = _sweep_blocks(nact, clist, bt0, rays, prev, test, visits)
     w = win.clamp_min(0)
     picked = slabs[w // CLUSTER_TRIS, :10, w % CLUSTER_TRIS]   # (RB, B, 10)
-    new = torch.cat([t_best[..., None], picked,
-                     win.to(torch.float32)[..., None],
-                     torch.zeros((RB, B, 4), dtype=rays.dtype,
-                                 device=rays.device)], dim=-1)
-    return torch.where(found[..., None], new, prev)
+    return _winner_payload(t_best, win, picked, prev)
+
+
+def cluster_sweep_mxu_plain(nact, clist, bt0, rays, prev, trisW, mat_tbl,
+                            visits=None):
+    """Plain PyTorch twin of the plane-form kernel, vectorized over blocks.
+
+    ``cluster_sweep_plain``'s inputs with the slab table ``trisW`` and the
+    material table ``mat_tbl``.  Each of the six fields is the dot product
+    of X = [o, d, 1, 0] with its slab column, summed term by term from k = 0
+    to 7 (the kernel's order; no matmul, whose reduction order is
+    unspecified), then t = -P * (1 / Q), u = Au + t Bu, v = Av + t Bv and
+    hit = t > 0, u >= 0, v >= 0, u + v <= 1.  The visit order, tie rule and
+    early exit are ``cluster_sweep_plain``'s.  The payload of a winner is
+    [t, 0 x 9, material, slot id, 0 x 4].
+    """
+    RB, B, _ = rays.shape
+    C = trisW.shape[0] // MXU_ROWS
+    K = CLUSTER_TRIS
+    slabs = trisW.view(C, MXU_ROWS, MXU_FIELDS * K)
+    X = [rays[:, :, k:k + 1] for k in range(6)] + [
+        torch.ones((RB, B, 1), dtype=rays.dtype, device=rays.device),
+        torch.zeros((RB, B, 1), dtype=rays.dtype, device=rays.device)]
+
+    def test(c):
+        slab = slabs[c]                                     # (RB, 8, 768)
+
+        def field(f):
+            w = slab[:, :, f * K:(f + 1) * K]               # (RB, 8, 128)
+            y = X[0] * w[:, 0:1]
+            for k in range(1, MXU_ROWS):
+                y = y + X[k] * w[:, k:k + 1]
+            return y                                        # (RB, B, 128)
+
+        Q, P, Bu, Au, Bv, Av = (field(f) for f in range(MXU_FIELDS))
+        t = -P * (1.0 / Q)
+        u = Au + t * Bu
+        v = Av + t * Bv
+        return t, (t > 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+
+    t_best, win = _sweep_blocks(nact, clist, bt0, rays, prev, test, visits)
+    w = win.clamp_min(0)
+    zeros = torch.zeros((RB, B, 9), dtype=rays.dtype, device=rays.device)
+    cols = torch.cat([zeros, mat_tbl[w // K, w % K][..., None]], dim=-1)
+    return _winner_payload(t_best, win, cols, prev)
 
 
 def cluster_sweep_kernel(nact, clist, bt0, rays, prev, tris, visits=None):
@@ -295,11 +426,64 @@ def cluster_sweep_kernel(nact, clist, bt0, rays, prev, tris, visits=None):
 cluster_sweep_kernel.launches = 0
 
 
-def _check(t, dtype, shape, name):
+def cluster_sweep_mxu_kernel(nact, clist, bt0, rays, prev, trisW, mat_tbl,
+                             visits=None):
+    """Sweep every ray block over its active clusters with the plane-form
+    test (the inputs of ``cluster_sweep_mxu_plain``) -> payload (RB, B, 16).
+
+    On CUDA tensors this launches the Hopper kernel
+    (csrc/cluster_sweep_mxu.cu) on the current stream without
+    synchronising, and counts the launch in
+    ``cluster_sweep_mxu_kernel.launches``; on CPU tensors it runs the plain
+    twin.  Any other device, dtype, shape or layout raises.
+    """
+    if rays.device.type == "cpu":
+        return cluster_sweep_mxu_plain(nact, clist, bt0, rays, prev, trisW,
+                                       mat_tbl, visits)
+    if rays.device.type != "cuda":
+        raise ValueError(
+            f"cluster_sweep_mxu_kernel: unsupported device {rays.device}")
+    RB, B, _ = rays.shape
+    C = trisW.shape[0] // MXU_ROWS
+    who = "cluster_sweep_mxu_kernel"
+    _check(rays, torch.float32, (RB, B, PAYLOAD_COLS), "rays", who)
+    _check(prev, torch.float32, (RB, B, PAYLOAD_COLS), "prev", who)
+    _check(trisW, torch.float32, (C * MXU_ROWS, MXU_FIELDS * CLUSTER_TRIS),
+           "trisW", who)
+    _check(mat_tbl, torch.float32, (C, CLUSTER_TRIS), "mat_tbl", who)
+    _check(nact, torch.int32, (RB,), "nact", who)
+    _check(clist, torch.int32, (RB, C), "clist", who)
+    _check(bt0, torch.float32, (RB, C), "bt0", who)
+    if visits is not None:
+        _check(visits, torch.int32, (RB,), "visits", who)
+    if not 1 <= B <= 1024:
+        raise ValueError(f"{who}: ray_block {B} not in [1, 1024]")
+    for t in (prev, trisW, mat_tbl, nact, clist, bt0, visits):
+        if t is not None and t.device != rays.device:
+            raise ValueError(f"{who}: tensors on different devices")
+    out = torch.empty_like(prev)
+    lib = build.load("cluster_sweep_mxu")
+    stream = torch.cuda.current_stream(rays.device).cuda_stream
+    rc = lib.wc_cluster_sweep_mxu(
+        nact.data_ptr(), clist.data_ptr(), bt0.data_ptr(), rays.data_ptr(),
+        prev.data_ptr(), trisW.data_ptr(), mat_tbl.data_ptr(), out.data_ptr(),
+        visits.data_ptr() if visits is not None else None,
+        RB, B, C, stream)
+    if rc != 0:
+        raise RuntimeError("cluster_sweep_mxu kernel launch failed: "
+                           + lib.wc_cuda_error_string(rc).decode())
+    cluster_sweep_mxu_kernel.launches += 1
+    return out
+
+
+cluster_sweep_mxu_kernel.launches = 0
+
+
+def _check(t, dtype, shape, name, who="cluster_sweep_kernel"):
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous():
         raise ValueError(
-            f"cluster_sweep_kernel: {name} must be a contiguous {dtype} "
+            f"{who}: {name} must be a contiguous {dtype} "
             f"tensor of shape {tuple(shape)}, got {t.dtype} "
             f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
 

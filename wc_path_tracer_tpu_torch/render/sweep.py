@@ -6,7 +6,8 @@ searched brute force, triangles through kernels/cluster.py, and the winner
 is re-shaded by golden.resolve_hit with the brute path's selection rules.
 Rays can be regrouped before the sweep (``cfg.ray_sort``) so each block of
 the kernel sees a tight frustum; every mode gives the same hits except on
-exact cross-cluster t-ties.
+exact cross-cluster t-ties.  ``cfg.cluster_kernel`` picks the block test:
+"mt" (Möller-Trumbore) or "mxu" (the plane form, with its own tables).
 
 The search is detached; the re-shade fetches the winner's vertices by an
 index gather from the slot id in payload column 11 through the ATTACHED
@@ -116,13 +117,22 @@ def _permuter(origin, direction, cfg, cmin, cmax, active=None, scene=None):
 
 
 def build_tables(mesh, cfg: RenderConfig | None):
-    """Detached (tris, cmin, cmax) cluster tables for the MT kernel."""
-    if cfg is not None and cfg.cluster_kernel == "mxu":
-        raise NotImplementedError(
-            "cluster_kernel='mxu' (the plane-form kernel) is not ported yet: "
-            "ROADMAP B2")
+    """Detached cluster tables matched to ``cfg.cluster_kernel``: a 3-tuple
+    (tris, cmin, cmax) for the MT kernel, a 4-tuple (trisW, cmin, cmax,
+    mat_tbl) for the plane-form ("mxu") kernel."""
     with torch.no_grad():
+        if cfg is not None and cfg.cluster_kernel == "mxu":
+            return cluster.build_cluster_tables_mxu(mesh)
         return cluster.build_cluster_tables(mesh)
+
+
+def _unpack_tables(tables):
+    """-> (tris, cmin, cmax, mat_tbl, variant) from either tuple shape."""
+    if len(tables) == 4:
+        tris, cmin, cmax, mat_tbl = tables
+        return tris, cmin, cmax, mat_tbl, "mxu"
+    tris, cmin, cmax = tables
+    return tris, cmin, cmax, None, "mt"
 
 
 def intersect_scene_sweep(scene: Scene, origin, direction, cfg: RenderConfig,
@@ -136,25 +146,27 @@ def intersect_scene_sweep(scene: Scene, origin, direction, cfg: RenderConfig,
     the dynamic sort) form all-dead blocks the kernel skips.  CONTRACT: on
     non-alive lanes only ``t`` of the returned record is defined; every
     consumer masks the rest, as golden._bounce_segment does.
-    ``block_fn``: the block sweep (default: the CUDA kernel wrapper).
+    ``block_fn``: the block sweep (default: the variant's CUDA kernel
+    wrapper, by ``cfg.cluster_kernel``).
     """
     o_ng, d_ng = origin.detach(), direction.detach()
     t_s, sph_center, sph_radius, sph_material = golden.sphere_closest(
         scene, origin, direction, cfg)
     if tables is None:
         tables = build_tables(scene.mesh, cfg)
-    tris, cmin, cmax = tables
+    tris, cmin, cmax, mat_tbl, variant = _unpack_tables(tables)
     t_bound = t_s if alive is None else torch.where(alive, t_s, -KINF)
     rb = cfg.ray_block or cluster.RAY_BLOCK
+    kw = dict(ray_block=rb, block_fn=block_fn, variant=variant,
+              mat_tbl=mat_tbl)
     perm = _permuter(o_ng, d_ng, cfg, cmin, cmax, active=alive, scene=scene)
     if perm is None:
         pay = cluster.cluster_sweep(o_ng, d_ng, t_bound, tris, cmin, cmax,
-                                    ray_block=rb, block_fn=block_fn)
+                                    **kw)
     else:
         fwd, inv = perm
         pay = inv(cluster.cluster_sweep(fwd(o_ng), fwd(d_ng), fwd(t_bound),
-                                        tris, cmin, cmax, ray_block=rb,
-                                        block_fn=block_fn))
+                                        tris, cmin, cmax, **kw))
     t_tri = pay[:, 0]
     if alive is not None:
         # dead lanes: restore the unbounded t (t == t_init on a miss)
@@ -175,8 +187,9 @@ def make_intersect_fn(scene: Scene, cfg: RenderConfig | None = None,
                       block_fn=None):
     """intersect_fn with the cluster tables and vertex slabs built once per
     frame and shared by every bounce.  ``block_fn`` overrides the block
-    sweep, e.g. ``cluster.cluster_sweep_plain`` to render through the plain
-    twin on the card."""
+    sweep, e.g. ``cluster.cluster_sweep_plain`` (or, under
+    ``cluster_kernel="mxu"``, ``cluster.cluster_sweep_mxu_plain``) to render
+    through the plain twin on the card."""
     tables = build_tables(scene.mesh, cfg)
     vslabs = cluster.vertex_slabs(scene.mesh)
 

@@ -8,12 +8,11 @@ ROADMAP item that ports them:
 - ``use_nee`` (render/golden.py ``_bounce_segment``; ROADMAP A5)
 - ``compact`` (render/golden.py ``trace_rays``; ROADMAP A9)
 - ``edge_grads`` (render/golden.py ``render_rows``; ROADMAP A10)
-- ``cluster_kernel="mxu"`` (render/sweep.py ``build_tables``; ROADMAP B2)
 
 ``row_chunks`` only changed how the JAX package batched a frame (its pixels
 are identical either way); the port always renders one band.  ``mis``,
-``compact_*``, ``traversal``, ``tonemap``, ``gamma`` and ``bloom*`` belong
-to code that is not ported yet and are not read.
+``compact_*``, ``tonemap``, ``gamma`` and ``bloom*`` belong to code that is
+not ported yet and are not read.
 """
 
 from __future__ import annotations
@@ -60,9 +59,10 @@ class RenderConfig:
     #                              except on exact cross-cluster t-ties.
     row_chunks: int = 0
     cluster_kernel: str = "mt"   # "mt" = Möller-Trumbore kernel; "mxu" =
-    #                              plane-form variant (not ported)
+    #                              plane-form variant
     ray_block: int = 0           # rays per cluster-sweep block (0 = 512)
-    traversal: str = "stackless"
+    traversal: str = "stackless"  # BVH walk of the "wavefront" renderer:
+    #                               "stackless" (escape links) or "stack"
 
     # --- compat quirks (True = reproduce reference behavior bit-for-bit) ---
     sphere_near_root_only: bool = True  # quirk 1: only the near root `.x` of
