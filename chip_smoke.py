@@ -42,9 +42,18 @@ from wc_path_tracer_tpu_torch.scene.camera import camera_matrices
 H100_FP32_FLOPS = 67e12      # FP32 non-tensor peak, H100 SXM at 700 W
 H100_HBM_BYTES = 3.35e12     # HBM3 bytes/s, H100 SXM
 OPS_PER_TEST = 54            # FP32 ops per ray x triangle test (cluster_sweep.cu)
-OPS_PER_PLANE_TEST = 103     # FP32 ops per ray x slot (cluster_sweep_mxu.cu)
-OPS_PER_POP = 25             # slab test + enter compares (bvh_walk.cu)
-OPS_PER_INNER = 47           # two child slab tests + the near-child choice
+# The bounds count the operations each function needs, not those its kernel
+# happens to issue.  Plane form, per ray x slot: Q, Bu, Bv read d only (3
+# multiplies + 2 adds each), P, Au, Av read o and the constant 1 (3 + 3
+# each), t = -P (1 / Q) 3, u and v 2 each, u + v 1, 5 compares.
+OPS_PER_PLANE_TEST = 46
+# BVH walk: one slab test per node reached (6 subtractions, 6 multiplies,
+# 10 min/max), computed with its siblings at the parent's entry (the roots,
+# once per ray and draw); at each pop only the 3 enter compares are new.
+OPS_PER_SLAB = 22
+OPS_PER_POP = 3
+OPS_PER_INNER = 2 * OPS_PER_SLAB + 3   # the children's slabs + the choice
+PLANE_T_RTOL = 5e-5          # B2 vs MT t: see mxu_phase
 BUNNY = dict(width=512, height=512, samples=1, max_bounces=4, sky="gradient")
 CORNELL = dict(width=1024, height=1024, samples=1, max_bounces=4,
                sky="gradient")
@@ -208,7 +217,8 @@ def pallas_phase(smi, cfg):
               f"pallas query {q}: offsets equal on >= 99.99% of rays, t "
               "equal where they are")
         pops, inner, tests = (int(x) for x in ck.long().sum(0))
-        ops = pops * OPS_PER_POP + inner * OPS_PER_INNER + tests * OPS_PER_TEST
+        ops = (R * nd * OPS_PER_SLAB + pops * OPS_PER_POP
+               + inner * OPS_PER_INNER + tests * OPS_PER_TEST)
         m = scene.mesh
         nb = nbytes(o, d, t0, tk, ok, m.bvh_min, m.bvh_max, m.bvh_left,
                     m.bvh_count, m.indices, m.vertices)
@@ -308,34 +318,29 @@ def mxu_phase(smi, scene, mats, cfg):
         both = hk & hm
         dt = (k[..., 0] - mt[..., 0]).abs()[both]
         t_mt = mt[..., 0][both]
-        # the plane form's t = -P / Q loses digits where the ray grazes the
-        # plane (Q = n.d cancels) and, on bounce rays that start on a
-        # surface, where t is tiny (P cancels): hold t to 1e-4 max(t, 1) on
-        # every ray both kernels hit and to 1e-5 max(t, 1) on 99.9 % of them
-        scaled = dt / t_mt.clamp_min(1.0)
+        rel = float((dt / t_mt).max()) if dt.numel() else 0.0
+        rel1 = float((dt / t_mt.clamp_min(1.0)).max()) if dt.numel() else 0.0
         rec = dict(query=q, bitwise=bool(torch.equal(k, p)),
                    max_abs_err=float((k - p).abs().max()),
                    visits_equal=bool(torch.equal(vk, vp)),
                    visits=int(vk.sum()), hits=int(hk.sum()),
                    hits_differ_from_mt=int((hk != hm).sum()),
-                   max_rel_dt_vs_mt=float((dt / t_mt).max()) if dt.numel()
-                   else 0.0,
-                   max_dt_over_max_t_1=float(scaled.max()) if dt.numel()
-                   else 0.0,
-                   t_within_1e5_vs_mt=float((scaled <= 1e-5).float().mean())
-                   if dt.numel() else 1.0,
+                   max_rel_dt_vs_mt=rel, max_dt_over_max_t_1=rel1,
                    slots_equal_mt=float((k[..., 11] == mt[..., 11])
                                         .float().mean()))
         parity.append(rec)
         print(f"[parity] mxu query {q}: {json.dumps(rec)}", flush=True)
         check(rec["bitwise"] and rec["visits_equal"],
               f"mxu query {q}: kernel equals its plain twin bit for bit")
-        check(rec["hits_differ_from_mt"] <= hk.numel() // 10000
-              and rec["max_dt_over_max_t_1"] <= 1e-4
-              and rec["t_within_1e5_vs_mt"] >= 0.999,
-              f"mxu query {q}: hits equal the MT kernel's on >= 99.99% of "
-              "rays; where both hit, |dt| <= 1e-4 max(t, 1), and <= 1e-5 "
-              "max(t, 1) on >= 99.9% of them")
+        # the plane form's t = -P / Q loses digits where the ray grazes the
+        # plane (Q = n.d cancels): primary rays are held to |dt| <= 5e-5 t.
+        # Bounce rays start on a surface, where t is tiny and P cancels too,
+        # so they are held to |dt| <= 5e-5 max(t, 1)
+        check(rec["hits_differ_from_mt"] == 0
+              and (rel if q == 0 else rel1) <= PLANE_T_RTOL,
+              f"mxu query {q}: hits equal the MT kernel's on every ray; "
+              f"|dt| <= {PLANE_T_RTOL:g} {'t' if q == 0 else 'max(t, 1)'} "
+              "where both hit")
         visits = int(vk.sum())
         ops = visits * B * cluster.CLUSTER_TRIS * OPS_PER_PLANE_TEST
         bound_ms, bound_by = bound(ops, nbytes(*args) + nbytes(args[4]))

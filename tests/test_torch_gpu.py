@@ -7,6 +7,8 @@ without the repository's conftest:
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -168,6 +170,11 @@ def test_bvh_walk_wrapper_rejects_bad_inputs():
         traversal.bvh_walk_kernel(o.double(), d, t0, scene.mesh)
     with pytest.raises(ValueError, match="t_init"):
         traversal.bvh_walk_kernel(o, d, t0[:10], scene.mesh)
+    cyclic = dataclasses.replace(
+        scene.mesh, bvh_left=torch.zeros_like(scene.mesh.bvh_left),
+        bvh_count=torch.zeros_like(scene.mesh.bvh_count))
+    with pytest.raises(ValueError, match="more than 64 levels"):
+        traversal.bvh_walk_kernel(o, d, t0, cyclic)
 
 
 @pytest.mark.gpu

@@ -249,3 +249,27 @@ def test_stack_depth_check():
     scene = types.Scene(tscene.materials, tscene.spheres, chain)
     with pytest.raises(ValueError, match="more than 64 levels"):
         wavefront.make_intersect_fn_pallas(scene)
+    o, d = (_t(x) for x in random_rays(8, 1))
+    t0 = torch.full((8,), float(KINF))
+    for walk in (traversal.bvh_walk_plain, traversal.bvh_walk_kernel):
+        with pytest.raises(ValueError, match="more than 64 levels"):
+            walk(o, d, t0, chain)
+
+
+def test_stack_depth_check_runs_once_per_bank(monkeypatch):
+    """A bank that passed is not walked on the host again; replacing one of
+    its tables makes the next walk check again."""
+    _, tscene = _soup(16, 0)
+    mesh = dataclasses.replace(tscene.mesh)
+    calls = []
+    depth = traversal.tree_depth
+    monkeypatch.setattr(traversal, "tree_depth",
+                        lambda m: calls.append(1) or depth(m))
+    o, d = (_t(x) for x in random_rays(8, 1))
+    t0 = torch.full((8,), float(KINF))
+    for _ in range(3):
+        traversal.bvh_walk_kernel(o, d, t0, mesh)
+    assert len(calls) == 1
+    mesh.bvh_count = mesh.bvh_count.clone()
+    traversal.check_stack_depth(mesh)
+    assert len(calls) == 2

@@ -21,12 +21,16 @@
 // memory through L2; one launch walks every draw, so the TPU's SMEM
 // chunking has no counterpart.
 //
-// Bound: operations at this size.  Per ray, each popped node is one slab
-// test (6 subtractions, 6 multiplies, 10 min/max) and 3 compares (25 ops),
-// each entered inner node two more slab tests and the near-child choice
-// (47), each leaf triangle one Moller-Trumbore test (54, counted as in
-// cluster_sweep.cu); the tables are a few MB and the rays move 36 bytes
-// each, below the operation time at 67 TFLOP/s FP32 (H100 SXM, 700 W).
+// Bound: operations at this size, counted as the walk needs them, not as
+// this loop issues them.  Per ray, each node reached needs one slab test
+// (6 subtractions, 6 multiplies, 10 min/max: 22 ops), computed for both
+// children at an entered inner node with the near-child choice (47 ops)
+// and for the roots once per draw; each pop adds 3 enter compares, each
+// leaf triangle one Moller-Trumbore test (54, counted as in
+// cluster_sweep.cu).  This loop recomputes each popped node's slab test,
+// which its parent already did.  The tables are a few MB and the rays move
+// 36 bytes each, below the operation time at 67 TFLOP/s FP32 (H100 SXM,
+// 700 W).
 // This first version is simple and right, not fast: divergent threads, no
 // ray sorting, no wide BVH, no packets.  Built with -fmad=false so every
 // product and sum is rounded separately, as in the PyTorch twin.
@@ -148,7 +152,7 @@ __global__ void bvh_walk_kernel(
         const float ldist = lb.t0 > 0.0f ? lb.t0 : lb.t1;
         const float rdist = rb.t0 > 0.0f ? rb.t0 : rb.t1;
         const bool near_left = ldist < rdist;
-        if (ptr <= kStack - 2) {  // always true for trees the host admits
+        if (ptr <= kStack - 2) {  // always true: the wrapper refuses deeper trees
           stack[ptr++] = near_left ? rchild : lchild;  // far: popped last
           stack[ptr++] = near_left ? lchild : rchild;  // near: popped next
         }

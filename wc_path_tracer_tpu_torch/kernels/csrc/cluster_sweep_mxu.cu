@@ -26,10 +26,13 @@
 // FP32 CUDA cores: Hopper's tensor cores have no full-FP32 mode (TF32 keeps
 // 10 mantissa bits), and a low-precision t would reorder closest hits.
 //
-// Bound: operations.  Per ray x slot the loop below does 6 x (8 multiplies
-// + 7 adds), a division, a negation and 2 multiplies, 3 adds and 6 compares
-// (103 FP32 ops) against 67 TFLOP/s FP32 (H100 SXM, 700 W); the slabs are
-// 24 KiB per cluster and stay in L2.  Simple and right first: no
+// Bound: operations.  The function needs 46 FP32 ops per ray x slot: Q,
+// Bu and Bv read only d (3 multiplies + 2 adds each), P, Au and Av read o
+// and the constant 1 (3 + 3 each), then t (a division, a negation, a
+// multiply), u and v (2 each), u + v and 5 compares; against 67 TFLOP/s
+// FP32 (H100 SXM, 700 W).  The loop below issues 103, since it sums all 8
+// rows of every dot product, structural zeros and the 1 included; the
+// slabs are 24 KiB per cluster and stay in L2.  Simple and right first: no
 // structural-zero skipping, no TMA, no double buffering.  Built with
 // -fmad=false so every product and sum is rounded separately, as in the
 // PyTorch twin, which makes the two bitwise comparable.

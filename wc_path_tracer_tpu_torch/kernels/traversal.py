@@ -63,14 +63,26 @@ def tree_depth(mesh) -> int:
     return depth
 
 
+_DEPTH_TABLES = ("bvh_left", "bvh_count", "draw_node_offset", "draw_count")
+
+
 def check_stack_depth(mesh) -> None:
     """Raise if a stack walk of this bank could overflow STACK_DEPTH slots.
 
     A walk of a tree with D levels holds at most D entries (one waiting
-    sibling per level above the popped node, plus its two children)."""
+    sibling per level above the popped node, plus its two children).  A
+    bank that passes remembers the tables it passed with, so a static scene
+    pays ``tree_depth``'s host copy once; a table replaced on the bank is
+    checked again (nothing in the package edits a BVH table in place)."""
+    tables = tuple(getattr(mesh, k) for k in _DEPTH_TABLES)
+    passed = getattr(mesh, "_stack_depth_passed", ())
+    if len(passed) == len(tables) and all(
+            a is b for a, b in zip(passed, tables)):
+        return
     if tree_depth(mesh) > STACK_DEPTH:
         raise ValueError(f"a BVH of this scene has more than {STACK_DEPTH} "
                          f"levels; the stack walk holds at most {STACK_DEPTH}")
+    mesh._stack_depth_passed = tables
 
 
 def _draws(mesh):
@@ -104,7 +116,9 @@ def bvh_walk_plain(origin, direction, t_init, mesh, counts=None):
     receives each ray's nodes popped, inner nodes entered and triangles
     tested.  Each step pops one node on every lane whose stack is not
     empty; lanes are independent, so this equals the one-thread-per-ray
-    kernel."""
+    kernel.  Refuses a bank whose trees could overflow the stack
+    (``check_stack_depth``)."""
+    check_stack_depth(mesh)
     origin, direction = origin.detach(), direction.detach()
     R = origin.shape[0]
     dev = origin.device
@@ -195,14 +209,15 @@ def bvh_walk_kernel(origin, direction, t_init, mesh, counts=None):
     On CUDA tensors this launches the Hopper kernel (csrc/bvh_walk.cu) on
     the current stream without synchronising, and counts the launch in
     ``bvh_walk_kernel.launches``; on CPU tensors it runs the plain walk.
-    Any other device, dtype, shape or layout raises.  The caller guarantees
-    the trees fit the stack (``check_stack_depth``); the kernel never writes
-    past it.
+    Any other device, dtype, shape or layout raises, and so does a bank
+    whose trees could overflow the kernel's stack (``check_stack_depth``,
+    a host copy on a bank's first walk only).
     """
     if origin.device.type == "cpu":
         return bvh_walk_plain(origin, direction, t_init, mesh, counts)
     if origin.device.type != "cuda":
         raise ValueError(f"bvh_walk_kernel: unsupported device {origin.device}")
+    check_stack_depth(mesh)
     R = origin.shape[0]
     N = mesh.bvh_left.shape[0]
     D = mesh.draw_node_offset.shape[0]

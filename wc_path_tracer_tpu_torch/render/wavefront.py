@@ -68,8 +68,9 @@ def intersect_scene_pallas(scene: Scene, origin, direction, cfg: RenderConfig,
 
 
 def make_intersect_fn_pallas(scene: Scene, walk_fn=None):
-    """intersect_fn for golden's transport through the kernel walk, after
-    checking that every BVH of the scene fits the walk's stack."""
+    """intersect_fn for golden's transport through ``walk_fn`` (default the
+    kernel walk), after checking that every BVH of the scene fits the
+    walk's stack."""
     traversal.check_stack_depth(scene.mesh)
 
     def fn(scene, origin, direction, cfg):
@@ -78,30 +79,25 @@ def make_intersect_fn_pallas(scene: Scene, walk_fn=None):
     return fn
 
 
-def _bvh_intersect_fn(scene: Scene, cfg: RenderConfig):
-    if cfg.traversal == "stack":
-        traversal.check_stack_depth(scene.mesh)
-    return intersect_scene_bvh
-
-
 def trace_rays(scene, origin, direction, seed, cfg):
     return golden.trace_rays(scene, origin, direction, seed, cfg,
-                             intersect_fn=_bvh_intersect_fn(scene, cfg))
+                             intersect_fn=intersect_scene_bvh)
 
 
 def render_rows(scene, mats, cfg, frame_count, y0, num_rows):
     return golden.render_rows(scene, mats, cfg, frame_count, y0, num_rows,
-                              intersect_fn=_bvh_intersect_fn(scene, cfg))
+                              intersect_fn=intersect_scene_bvh)
 
 
 def render_frame(scene, mats, cfg, frame_count):
     """One frame through the plain BVH walk of ``cfg.traversal``."""
     return golden.render_frame(scene, mats, cfg, frame_count,
-                               intersect_fn=_bvh_intersect_fn(scene, cfg))
+                               intersect_fn=intersect_scene_bvh)
 
 
 def render_frame_pallas(scene, mats, cfg, frame_count):
     """One frame with the BVH-walk kernel as the closest-hit backend
-    (dispatch name "pallas")."""
+    (dispatch name "pallas").  The stack-depth check runs on the scene's
+    first walk only (``traversal.check_stack_depth``)."""
     return golden.render_frame(scene, mats, cfg, frame_count,
-                               intersect_fn=make_intersect_fn_pallas(scene))
+                               intersect_fn=intersect_scene_pallas)
