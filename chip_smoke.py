@@ -14,6 +14,11 @@ must go through its kernel 5 times per frame:
 - the cluster sweep with cluster_kernel="mxu" -> the plane-form sweep
   (kernels/csrc/cluster_sweep_mxu.cu).
 
+The cluster sweep must equal its twin bit for bit (payload and visits) on
+the frame's five queries, on a seeded tie-heavy query and on the primary
+query at ray_block 2048, under the wrapper's thread layout and under every
+layout it is timed in; per query it prints the active clusters and visits
+per ray block and the long pole (the heaviest block launched alone).
 It also renders the 1024 x 1024 Cornell box through the brute-force path
 and the plain "wavefront" BVH walks at 64 x 64, checks the images, and
 prints times beside the card's name and power limit.  The last two lines of
@@ -35,7 +40,8 @@ import torch
 from wc_path_tracer_tpu_torch import RenderConfig
 from wc_path_tracer_tpu_torch.kernels import build, cluster, traversal
 from wc_path_tracer_tpu_torch.models.builtin import cornell_box_scene
-from wc_path_tracer_tpu_torch.models.procedural import bunny_gltf_scene
+from wc_path_tracer_tpu_torch.models.procedural import (bunny_gltf_scene,
+                                                         tie_heavy_query)
 from wc_path_tracer_tpu_torch.render import dispatch, golden, sweep, wavefront
 from wc_path_tracer_tpu_torch.scene.camera import camera_matrices
 
@@ -54,6 +60,8 @@ OPS_PER_SLAB = 22
 OPS_PER_POP = 3
 OPS_PER_INNER = 2 * OPS_PER_SLAB + 3   # the children's slabs + the choice
 PLANE_T_RTOL = 5e-5          # B2 vs MT t: see mxu_phase
+# B1 layouts timed against each other: (CTAs per ray block, threads per ray)
+B1_LAYOUTS = [(1, 1), (2, 2), (2, 4), (4, 2), (4, 4), (8, 4)]
 BUNNY = dict(width=512, height=512, samples=1, max_bounces=4, sky="gradient")
 CORNELL = dict(width=1024, height=1024, samples=1, max_bounces=4,
                sky="gradient")
@@ -155,6 +163,86 @@ def check_image(image, what):
     check(bool(torch.isfinite(image).all()) and image.shape == (512, 512, 3),
           f"{what} image is finite, 512 x 512 x 3")
     check(0.05 < mean < 3.0, f"{what} image mean {mean:.4f} is plausible")
+
+
+def spread(x):
+    """mean, p90 and max of a per-block count."""
+    xf = x.float()
+    return dict(mean=float(xf.mean()), p90=float(torch.quantile(xf, 0.9)),
+                max=int(x.max()))
+
+
+def primary_rays(query):
+    """(origin, direction, t_init) of a captured B1 query's rays."""
+    rays, prev = query[3].view(-1, 16), query[4].view(-1, 16)
+    return (rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous(),
+            prev[:, 0].contiguous())
+
+
+def b1_sweep_both(query, ray_block):
+    """One cluster_sweep of ``query`` (origin, direction, t_init, tris,
+    cmin, cmax) whose block sweep runs B1 and its plain twin on the same
+    inputs -> (kernel payload, twin payload, kernel visits, twin visits,
+    nact)."""
+    seen = {}
+
+    def both(nact, clist, bt0, rays, prev, tris):
+        vk = torch.zeros_like(nact)
+        vp = torch.zeros_like(nact)
+        seen.update(
+            k=cluster.cluster_sweep_kernel(nact, clist, bt0, rays, prev,
+                                           tris, vk),
+            p=cluster.cluster_sweep_plain(nact, clist, bt0, rays, prev, tris,
+                                          vp),
+            vk=vk, vp=vp, nact=nact)
+        return seen["k"]
+
+    with torch.no_grad():
+        cluster.cluster_sweep(*query, ray_block=ray_block, block_fn=both)
+    torch.cuda.synchronize()
+    return seen["k"], seen["p"], seen["vk"], seen["vp"], seen["nact"]
+
+
+def b1_parity(q, k, p, vk, vp, nact):
+    """B1 payload and visits against its twin's, printed as one record."""
+    rec = dict(query=q, bitwise=bool(torch.equal(k, p)),
+               max_abs_err=float((k - p).abs().max()),
+               visits_equal=bool(torch.equal(vk, vp)),
+               visits=int(vk.sum()), nact=int(nact.sum()),
+               hits=int((p[..., 11] >= 0).sum()))
+    print(f"[parity] query {q}: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def b1_layout_ms(args, want):
+    """B1's ms per launch on one query under each layout of B1_LAYOUTS (CTAs
+    per ray block, threads per ray), the wrapper's choice replaced for the
+    call -> ({layout: ms}, whether every layout's payload equals ``want``)."""
+    chosen, out, same = cluster.sweep_layout, {}, True
+    try:
+        for lay in B1_LAYOUTS:
+            cluster.sweep_layout = lambda B, lay=lay: lay
+            got = cluster.cluster_sweep_kernel(*args)
+            torch.cuda.synchronize()
+            same = same and bool(torch.equal(got, want))
+            out[f"{lay[0]}x{lay[1]}"] = event_ms(
+                lambda: cluster.cluster_sweep_kernel(*args), 20)
+    finally:
+        cluster.sweep_layout = chosen
+    return out, same
+
+
+def sm_clock(fn, reps=500):
+    """nvidia-smi's SM clock, its maximum and the power draw, read while
+    ``fn`` runs ``reps`` times back to back."""
+    for _ in range(reps):
+        fn()
+    read = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    torch.cuda.synchronize()
+    return read
 
 
 def mean_entry(per_query):
@@ -422,6 +510,7 @@ def main() -> int:
     # -- 2. the bunny scene; capture one frame's five kernel queries -------
     scene, cam = bunny_gltf_scene(device="cuda")
     mats = camera_matrices(cam, 1.0)
+    tables = cluster.build_cluster_tables(scene.mesh)
     cfg = RenderConfig(**BUNNY)
     frame_fn = dispatch.get_render_frame("auto", scene, cfg)
     check(frame_fn is sweep.render_frame,
@@ -451,23 +540,32 @@ def main() -> int:
         k = cluster.cluster_sweep_kernel(*args, vk)
         p = cluster.cluster_sweep_plain(*args, vp)
         torch.cuda.synchronize()
-        same_slot = k[..., 11] == p[..., 11]
-        found = p[..., 11] >= 0
-        rel = ((k[..., 0] - p[..., 0]).abs()
-               / p[..., 0].abs().clamp_min(1e-30))[same_slot & found]
-        rec = dict(query=q, bitwise=bool(torch.equal(k, p)),
-                   slots_equal=float(same_slot.float().mean()),
-                   max_rel_dt=float(rel.max()) if rel.numel() else 0.0,
-                   max_abs_err=float((k - p).abs().max()),
-                   visits_equal=bool(torch.equal(vk, vp)),
-                   visits=int(vk.sum()), nact=int(args[0].sum()),
-                   hits=int(found.sum()))
+        rec = b1_parity(q, k, p, vk, vp, args[0])
         parity.append(rec)
-        print(f"[parity] query {q}: {json.dumps(rec)}", flush=True)
-        check(rec["slots_equal"] >= 0.9999 and rec["max_rel_dt"] <= 1e-6,
-              f"query {q}: slot ids equal on >= 99.99% of rays, "
-              "|dt| <= 1e-6 t where equal")
-        check(rec["visits_equal"], f"query {q}: same clusters visited")
+        check(rec["bitwise"] and rec["visits_equal"],
+              f"query {q}: payload and visits equal the plain twin's bit "
+              "for bit")
+
+    # tie-heavy query, and the primary query at ray_block 2048
+    extra = {}
+    for label, q_args in (
+            ("tie-heavy", tie_heavy_query(65536, 32, seed=7, device="cuda")),
+            ("primary rb 2048", primary_rays(queries[0]) + tables)):
+        rb = 2048 if label.endswith("2048") else cluster.RAY_BLOCK
+        k, p, vk, vp, nact = b1_sweep_both(q_args, rb)
+        rec = b1_parity(label, k, p, vk, vp, nact)
+        rec.update(ray_block=rb, layout=cluster.sweep_layout(rb))
+        if label == "tie-heavy":
+            o, d, t0 = q_args[:3]
+            ref = torch.cat([cluster.sweep_reference(
+                o[i:i + 8192], d[i:i + 8192], t0[i:i + 8192], *q_args[3:])
+                for i in range(0, o.shape[0], 8192)])
+            differ = k.view(-1, 16)[:, 11] != ref[:, 11]
+            rec["slots_differ_from_global_first_min"] = int(differ.sum())
+        extra[label] = rec
+        check(rec["bitwise"] and rec["visits_equal"],
+              f"{label} query (ray_block {rb}): payload and visits equal "
+              "the plain twin's bit for bit")
 
     # kernel vs the independent brute oracle on 65,536 primary rays
     nact, clist, bt0, rays, prev, tris = queries[0]
@@ -547,21 +645,54 @@ def main() -> int:
     b2 = mxu_phase(smi, scene, mats, cfg)
 
     # -- 8. B1 kernel times against the bound, per launch -------------------
-    per_query = []
+    # The long pole of a launch is the block with the most visits: it is
+    # launched alone, and its ms per visit times the most visits of the
+    # query is what the launch would take if that block alone bound it.
+    per_query, layouts_same = [], True
     for q, args in enumerate(queries):
         visits = torch.zeros(RB, dtype=torch.int32, device="cuda")
-        cluster.cluster_sweep_kernel(*args, visits)
+        want = cluster.cluster_sweep_kernel(*args, visits)
         ms = event_ms(lambda: cluster.cluster_sweep_kernel(*args), 20)
         plain = event_ms(lambda: cluster.cluster_sweep_plain(*args), 2)
         ops = int(visits.sum()) * B * cluster.CLUSTER_TRIS * OPS_PER_TEST
         bound_ms, bound_by = bound(ops, nbytes(*args) + nbytes(args[4]))
-        per_query.append(dict(query=q, ms=ms, plain_ms=plain,
-                              bound_ms=bound_ms, bound_by=bound_by,
-                              visits=int(visits.sum())))
+        b = int(torch.argmax(visits))
+        alone = event_ms(lambda: cluster.cluster_sweep_kernel(
+            *(x[b:b + 1] for x in args[:5]), args[5]), 20)
+        per_visit = alone / int(visits[b])
+        layouts, same = b1_layout_ms(args, want)
+        layouts_same = layouts_same and same
+        rec = dict(query=q, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                   bound_by=bound_by, visits=int(visits.sum()),
+                   nact_per_block=spread(args[0]),
+                   visits_per_block=spread(visits),
+                   blocks_visiting_half=int((visits >= (C + 1) // 2).sum()),
+                   ms_per_visit_alone=per_visit,
+                   long_pole_ms=int(visits.max()) * per_visit,
+                   layouts_ms=layouts)
+        per_query.append(rec)
         print(f"[kernel] query {q}: {ms:.3f} ms (plain {plain:.1f} ms), "
               f"bound {bound_ms:.3f} ms ({bound_by}), "
               f"{int(visits.sum())} block-cluster visits, on {smi}",
               flush=True)
+        na, vi = rec["nact_per_block"], rec["visits_per_block"]
+        print(f"[visits] query {q}: nact per block mean {na['mean']:.1f} "
+              f"p90 {na['p90']:.0f} max {na['max']}; visits per block mean "
+              f"{vi['mean']:.1f} p90 {vi['p90']:.0f} max {vi['max']}; "
+              f"{rec['blocks_visiting_half']} of {RB} blocks visit >= half "
+              f"of {C} clusters; long pole {rec['long_pole_ms']:.3f} ms = "
+              f"{vi['max']} visits x {per_visit * 1e3:.2f} us per visit "
+              f"(heaviest block alone), launch {ms:.3f} ms", flush=True)
+        print(f"[layouts] query {q}: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in layouts.items())
+            + f" (CTAs x threads per ray; default "
+            f"{'x'.join(map(str, cluster.sweep_layout(B)))}), on {smi}",
+            flush=True)
+    check(layouts_same, "every B1 layout gives the same payload on every "
+          "query")
+    clock = sm_clock(lambda: cluster.cluster_sweep_kernel(*queries[1]))
+    print(f"[kernel] SM clock, max SM clock, power while B1 runs: {clock}",
+          flush=True)
 
     print("[kernel] no PyTorch call computes a closest-hit sweep or a BVH "
           "walk, so no kernel has a library time (library_ms null)",
@@ -592,7 +723,10 @@ def main() -> int:
         "library_ms": None,
         "ms_note": "mean per launch over one 512^2 bunny frame's 5 queries",
         "parity": parity,
+        "parity_extra": extra,
         "per_query": per_query,
+        "layout": cluster.sweep_layout(B),
+        "sm_clock_under_load": clock,
         "card": smi,
         "bunny_frame_ms": frame_ms,
         "bunny_mrays_s": segments / (frame_ms / 1e3) / 1e6,

@@ -16,7 +16,8 @@ from wc_path_tracer_tpu.kernels import cluster as jcluster
 from wc_path_tracer_tpu.models.procedural import bunny_like_scene as j_bunny
 
 from wc_path_tracer_tpu_torch.kernels import cluster
-from wc_path_tracer_tpu_torch.models.procedural import bunny_like_scene
+from wc_path_tracer_tpu_torch.models.procedural import (bunny_like_scene,
+                                                         tie_heavy_query)
 
 torch.set_num_threads(2)
 
@@ -135,6 +136,42 @@ def test_plain_twin_visits_and_early_exit(case):
     assert torch.all(seen["visits"] >= (seen["nact"] > 0).int())
     assert int(seen["visits"].sum()) < int(seen["nact"].sum())
     torch.testing.assert_close(seen["out"], seen["full"], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("ray_block", [512, 2048])
+def test_tie_heavy_twin_equals_jax_kernel(ray_block):
+    """Exact t-ties within and across clusters (``tie_heavy_query``): the
+    twin's payload equals the JAX kernel's bit for bit, slot ids included,
+    so both give a tie to the lowest lane of the first-visited cluster."""
+    q = tie_heavy_query(4096, 12, seed=3, device="cpu")
+    got = cluster.cluster_sweep(*q, ray_block=ray_block)
+    want = np.asarray(jcluster.cluster_sweep(
+        *(jnp.asarray(x.numpy()) for x in q), interpret=True,
+        ray_block=ray_block))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the ties are real: the global first minimum picks another copy on
+    # many rays, always at the same t
+    ref = cluster.sweep_reference(*q)
+    differ = got[:, 11] != ref[:, 11]
+    assert int(differ.sum()) > 200
+    assert torch.equal(got[differ, 0], ref[differ, 0])
+
+
+def test_kernel_wrappers_take_ray_blocks_up_to_4096(case):
+    o, d, t0 = (_t(case[k][:600]) for k in ("o", "d", "t_init"))
+    want = cluster.cluster_sweep(o, d, t0, *case["tt"])
+    for rb in (2048, 4096):
+        # the same closest t on every ray (a cross-cluster t-tie may go to
+        # another copy under another block composition)
+        got = cluster.cluster_sweep(o, d, t0, *case["tt"], ray_block=rb)
+        assert torch.equal(got[:, 0], want[:, 0])
+        assert torch.equal(got[:, 11] >= 0, want[:, 11] >= 0)
+    tw, cmin, cmax, mat = cluster.build_cluster_tables_mxu(case["tscene"].mesh)
+    for variant, tables, kw in (("mt", case["tt"], {}),
+                                ("mxu", (tw, cmin, cmax), dict(mat_tbl=mat))):
+        with pytest.raises(ValueError, match="4096"):
+            cluster.cluster_sweep(o, d, t0, *tables, ray_block=8192,
+                                  variant=variant, **kw)
 
 
 def test_kernel_wrapper_runs_the_twin_on_cpu(case):

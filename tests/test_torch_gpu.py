@@ -15,7 +15,8 @@ import torch
 
 from wc_path_tracer_tpu_torch import RenderConfig
 from wc_path_tracer_tpu_torch.kernels import cluster, traversal
-from wc_path_tracer_tpu_torch.models.procedural import bunny_like_scene
+from wc_path_tracer_tpu_torch.models.procedural import (bunny_like_scene,
+                                                         tie_heavy_query)
 from wc_path_tracer_tpu_torch.render import golden, sweep, wavefront
 from wc_path_tracer_tpu_torch.scene.camera import camera_matrices
 
@@ -39,13 +40,9 @@ def _rays(n, seed, device):
             for x in (o, d, t0))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("ray_block", [512, 64])
-def test_kernel_matches_plain_twin(ray_block):
-    _need_card()
-    scene, _ = bunny_like_scene(3, device="cuda")
-    tables = cluster.build_cluster_tables(scene.mesh)
-    o, d, t0 = _rays(3000, 1, "cuda")
+def _sweep_both(o, d, t0, tables, ray_block):
+    """One cluster_sweep whose block sweep runs the kernel and its twin on
+    the same inputs -> (kernel, twin, kernel visits, twin visits)."""
     seen = {}
 
     def both(nact, clist, bt0, rays, prev, tris):
@@ -61,10 +58,49 @@ def test_kernel_matches_plain_twin(ray_block):
                           block_fn=both)
     torch.cuda.synchronize()
     assert cluster.cluster_sweep_kernel.launches == before + 1
+    return seen["k"], seen["p"], seen["vk"], seen["vp"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ray_block", [8, 64, 512, 2048])
+def test_kernel_matches_plain_twin(ray_block):
+    _need_card()
+    scene, _ = bunny_like_scene(3, device="cuda")
+    tables = cluster.build_cluster_tables(scene.mesh)
+    o, d, t0 = _rays(3000, 1, "cuda")
+    k, p, vk, vp = _sweep_both(o, d, t0, tables, ray_block)
     # built with -fmad=false, the kernel rounds like the op-by-op twin
-    assert torch.equal(seen["k"], seen["p"])
-    assert torch.equal(seen["vk"], seen["vp"])
-    assert int((seen["k"][..., 11] >= 0).sum()) > 500
+    assert torch.equal(k, p)
+    assert torch.equal(vk, vp)
+    assert int((k[..., 11] >= 0).sum()) > 500
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ctas, groups", [(1, 1), (2, 2), (4, 2), (8, 4),
+                                          (8, 8)])
+def test_kernel_layouts_match_plain_twin(ctas, groups, monkeypatch):
+    """Every layout the kernel takes -- CTAs per ray block (a thread block
+    cluster) and threads per ray -- gives the twin's payload and visits."""
+    _need_card()
+    monkeypatch.setattr(cluster, "SWEEP_CTAS", ctas)
+    monkeypatch.setattr(cluster, "SWEEP_GROUPS", groups)
+    assert cluster.sweep_layout(1024) == (ctas, groups)
+    scene, _ = bunny_like_scene(3, device="cuda")
+    tables = cluster.build_cluster_tables(scene.mesh)
+    o, d, t0 = _rays(8192, 4, "cuda")
+    k, p, vk, vp = _sweep_both(o, d, t0, tables, 1024)
+    assert torch.equal(k, p) and torch.equal(vk, vp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ray_block", [64, 512, 2048])
+def test_kernel_matches_plain_twin_tie_heavy(ray_block):
+    """Exact t-ties within and across clusters, and blocks that stop
+    early: the kernel gives each tie to the twin's copy."""
+    _need_card()
+    o, d, t0, *tables = tie_heavy_query(4096, 12, seed=3, device="cuda")
+    k, p, vk, vp = _sweep_both(o, d, t0, tables, ray_block)
+    assert torch.equal(k, p) and torch.equal(vk, vp)
 
 
 @pytest.mark.gpu
@@ -100,7 +136,7 @@ def test_sweep_frame_kernel_equals_plain_twin():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("ray_block", [512, 64])
+@pytest.mark.parametrize("ray_block", [512, 64, 2048])
 def test_mxu_kernel_matches_plain_twin(ray_block):
     _need_card()
     scene, _ = bunny_like_scene(3, device="cuda")

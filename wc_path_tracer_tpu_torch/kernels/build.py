@@ -29,9 +29,9 @@ _I = ctypes.c_int
 # name -> {C function: (argtypes, restype)}
 SIGNATURES = {
     "cluster_sweep": {
-        # nact, clist, bt0, rays, prev, tris, out, visits, blocks,
-        # ray_block, clusters, stream
-        "wc_cluster_sweep": ([_P] * 8 + [_I] * 3 + [_P], _I),
+        # nact, clist, bt0, order, rays, prev, tris, out, visits, blocks,
+        # ray_block, clusters, CTAs per ray block, threads per ray, stream
+        "wc_cluster_sweep": ([_P] * 9 + [_I] * 5 + [_P], _I),
         "wc_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "cluster_sweep_mxu": {

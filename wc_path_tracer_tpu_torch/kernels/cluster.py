@@ -42,6 +42,9 @@ KINF = ix.KINFINITY
 CLUSTER_TRIS = 128   # triangle slots per cluster
 CLUSTER_ROWS = 16    # f32 rows per cluster slab: 9 coordinates, material, pad
 RAY_BLOCK = 512      # rays per kernel block (the JAX package's default)
+MAX_RAY_BLOCK = 4096  # largest ray block the CUDA sweep kernels take
+SWEEP_CTAS = 4       # CTAs sharing one 512-ray block in cluster_sweep.cu
+SWEEP_GROUPS = 4     # threads per ray there, each testing 128 / 4 slots
 PAYLOAD_COLS = 16
 CULL_MATERIALIZE_ELEMS = 64 * 1024 * 1024   # largest (rays x clusters) cull
 MXU_ROWS = 8         # K rows of a plane-form slab: o (3), d (3), 1, pad
@@ -380,6 +383,27 @@ def cluster_sweep_mxu_plain(nact, clist, bt0, rays, prev, trisW, mat_tbl,
     return _winner_payload(t_best, win, cols, prev)
 
 
+def sweep_layout(ray_block: int) -> tuple[int, int]:
+    """(CTAs, lane groups) of csrc/cluster_sweep.cu for one ray block: a
+    thread block cluster of up to SWEEP_CTAS CTAs (one per 128 rays) holds
+    the block's rays, SWEEP_GROUPS threads per ray, each testing every
+    SWEEP_GROUPS-th slot.  Past 1,024 threads per CTA the cluster grows to
+    8 CTAs, then the groups shrink."""
+    ctas, groups = min(SWEEP_CTAS, max(1, ray_block // 128)), SWEEP_GROUPS
+    while -(-ray_block // ctas) * groups > 1024:
+        if ctas < 8:
+            ctas *= 2
+        else:
+            groups //= 2
+    return ctas, groups
+
+
+def _check_ray_block(B: int, who: str):
+    if not 1 <= B <= MAX_RAY_BLOCK:
+        raise ValueError(f"{who}: ray_block {B} not in [1, {MAX_RAY_BLOCK}] "
+                         f"(the kernels' limit)")
+
+
 def cluster_sweep_kernel(nact, clist, bt0, rays, prev, tris, visits=None):
     """Sweep every ray block over its active clusters (the inputs of
     ``cluster_sweep_plain``) -> payload (RB, B, 16).
@@ -387,8 +411,11 @@ def cluster_sweep_kernel(nact, clist, bt0, rays, prev, tris, visits=None):
     On CUDA tensors this launches the Hopper kernel (csrc/cluster_sweep.cu)
     on the current stream without synchronising, and counts the launch in
     ``cluster_sweep_kernel.launches``; on CPU tensors it runs the plain
-    twin.  Any other device, dtype, shape or layout raises.
+    twin.  A ray block of more than MAX_RAY_BLOCK rays, any other device,
+    dtype, shape or layout raises.  The kernel takes the ray blocks in order
+    of falling ``nact`` (one device argsort here, no host sync).
     """
+    _check_ray_block(rays.shape[1], "cluster_sweep_kernel")
     if rays.device.type == "cpu":
         return cluster_sweep_plain(nact, clist, bt0, rays, prev, tris, visits)
     if rays.device.type != "cuda":
@@ -403,19 +430,18 @@ def cluster_sweep_kernel(nact, clist, bt0, rays, prev, tris, visits=None):
     _check(bt0, torch.float32, (RB, C), "bt0")
     if visits is not None:
         _check(visits, torch.int32, (RB,), "visits")
-    if not 1 <= B <= 1024:
-        raise ValueError(f"cluster_sweep_kernel: ray_block {B} not in [1, 1024]")
     for t in (prev, tris, nact, clist, bt0, visits):
         if t is not None and t.device != rays.device:
             raise ValueError("cluster_sweep_kernel: tensors on different devices")
     out = torch.empty_like(prev)
+    order = torch.argsort(nact, descending=True, stable=True).to(torch.int32)
     lib = build.load("cluster_sweep")
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     rc = lib.wc_cluster_sweep(
-        nact.data_ptr(), clist.data_ptr(), bt0.data_ptr(), rays.data_ptr(),
-        prev.data_ptr(), tris.data_ptr(), out.data_ptr(),
+        nact.data_ptr(), clist.data_ptr(), bt0.data_ptr(), order.data_ptr(),
+        rays.data_ptr(), prev.data_ptr(), tris.data_ptr(), out.data_ptr(),
         visits.data_ptr() if visits is not None else None,
-        RB, B, C, stream)
+        RB, B, C, *sweep_layout(B), stream)
     if rc != 0:
         raise RuntimeError("cluster_sweep kernel launch failed: "
                            + lib.wc_cuda_error_string(rc).decode())
@@ -435,17 +461,18 @@ def cluster_sweep_mxu_kernel(nact, clist, bt0, rays, prev, trisW, mat_tbl,
     (csrc/cluster_sweep_mxu.cu) on the current stream without
     synchronising, and counts the launch in
     ``cluster_sweep_mxu_kernel.launches``; on CPU tensors it runs the plain
-    twin.  Any other device, dtype, shape or layout raises.
+    twin.  A ray block of more than MAX_RAY_BLOCK rays, any other device,
+    dtype, shape or layout raises.
     """
+    who = "cluster_sweep_mxu_kernel"
+    _check_ray_block(rays.shape[1], who)
     if rays.device.type == "cpu":
         return cluster_sweep_mxu_plain(nact, clist, bt0, rays, prev, trisW,
                                        mat_tbl, visits)
     if rays.device.type != "cuda":
-        raise ValueError(
-            f"cluster_sweep_mxu_kernel: unsupported device {rays.device}")
+        raise ValueError(f"{who}: unsupported device {rays.device}")
     RB, B, _ = rays.shape
     C = trisW.shape[0] // MXU_ROWS
-    who = "cluster_sweep_mxu_kernel"
     _check(rays, torch.float32, (RB, B, PAYLOAD_COLS), "rays", who)
     _check(prev, torch.float32, (RB, B, PAYLOAD_COLS), "prev", who)
     _check(trisW, torch.float32, (C * MXU_ROWS, MXU_FIELDS * CLUSTER_TRIS),
@@ -456,8 +483,6 @@ def cluster_sweep_mxu_kernel(nact, clist, bt0, rays, prev, trisW, mat_tbl,
     _check(bt0, torch.float32, (RB, C), "bt0", who)
     if visits is not None:
         _check(visits, torch.int32, (RB,), "visits", who)
-    if not 1 <= B <= 1024:
-        raise ValueError(f"{who}: ray_block {B} not in [1, 1024]")
     for t in (prev, trisW, mat_tbl, nact, clist, bt0, visits):
         if t is not None and t.device != rays.device:
             raise ValueError(f"{who}: tensors on different devices")

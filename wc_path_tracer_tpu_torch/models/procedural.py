@@ -8,7 +8,9 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
+from wc_path_tracer_tpu_torch.kernels import cluster
 from wc_path_tracer_tpu_torch.models.gltf import parse_gltf
 from wc_path_tracer_tpu_torch.scene.camera import Camera
 from wc_path_tracer_tpu_torch.scene.types import (
@@ -95,6 +97,59 @@ def bunny_gltf_scene(max_blas_tris=None, device=None):
                    max_blas_tris=max_blas_tris)
     b.add_sphere((0.0, -100.0, 0.0), 100.0, ground)
     return b.build(dev), _bunny_camera(dev)
+
+
+def tie_heavy_query(n_rays: int = 4096, clusters: int = 12, seed: int = 0,
+                    device=None):
+    """A seeded closest-hit query built to tie -> (origin, direction, t_init,
+    tris, cmin, cmax) for ``kernels.cluster.cluster_sweep``.
+
+    48 base triangles (tilted quads' halves facing +z), rising in x and z, fill
+    ``clusters`` clusters of 128 slots: each cluster draws from a window of
+    24 of them (windows overlapping, sliding along x, in shuffled cluster
+    order), and every slot is a copy of one of those, so a hit ties exactly
+    with copies at other lanes of its cluster and in neighbouring clusters,
+    the first visited not always the lowest.  Origins are sorted by x, so
+    ray blocks are coherent strips, and the first quarter of the rays get a
+    finite search bound, so their blocks stop early.  Each slot has its own material
+    id; the last cluster's last 16 slots are dead.  Vertices and origins lie
+    on a 1/8 grid and direction components are powers of two, so every
+    product and sum of the test except those with 1/det is exact and the
+    hits do not depend on FMA contraction.
+    """
+    dev = resolve_device(device)
+    r = np.random.default_rng(seed)
+    K, T = 48, cluster.CLUSTER_TRIS
+    a = np.concatenate([np.sort(r.integers(-16, 9, K))[:, None],
+                        r.integers(-16, 9, (K, 1)),
+                        np.arange(K)[:, None] // 3 - 8], axis=1) / 8.0
+    b = a + np.stack([r.integers(4, 13, K), np.zeros(K),
+                      r.integers(-2, 3, K)], axis=1) / 8.0
+    c = a + np.stack([np.zeros(K), r.integers(4, 13, K),
+                      r.integers(-2, 3, K)], axis=1) / 8.0
+    starts = r.permutation(np.linspace(0, K - 24, clusters).astype(int))
+    pick = np.concatenate([s + r.integers(0, 24, T) for s in starts])
+    live = np.ones(clusters * T, bool)
+    live[-16:] = False
+    coords = [np.where(live[:, None], x[pick], 0.0) for x in (a, b, c)]
+    mat = np.arange(clusters * T) % 97
+    xy = r.integers(-16, 17, (n_rays, 2))
+    xy = xy[np.lexsort((xy[:, 1], xy[:, 0]))]          # coherent ray blocks
+    o = np.concatenate([xy / 8.0, np.full((n_rays, 1), 4.0)], axis=1)
+    d = np.concatenate([r.choice([-1.0, 1.0], (n_rays, 2))
+                        * 2.0 ** -r.integers(1, 6, (n_rays, 2)),
+                        np.full((n_rays, 1), -1.0)], axis=1)
+    t_init = np.full(n_rays, cluster.KINF)
+    q = n_rays // 4
+    t_init[:q] = r.integers(24, 33, q) / 8.0
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    tables = cluster.tables_from_coords(*(f32(x) for x in coords), f32(mat),
+                                        torch.tensor(live, device=dev),
+                                        clusters)
+    return (f32(o), f32(d), f32(t_init)) + tables
 
 
 def bunny_like_scene(subdivisions: int = 5, max_blas_tris=None, device=None):
