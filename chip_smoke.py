@@ -14,11 +14,15 @@ must go through its kernel 5 times per frame:
 - the cluster sweep with cluster_kernel="mxu" -> the plane-form sweep
   (kernels/csrc/cluster_sweep_mxu.cu).
 
-The cluster sweep must equal its twin bit for bit (payload and visits) on
-the frame's five queries, on a seeded tie-heavy query and on the primary
-query at ray_block 2048, under the wrapper's thread layout and under every
-layout it is timed in; per query it prints the active clusters and visits
-per ray block and the long pole (the heaviest block launched alone).
+Both cluster sweeps must equal their twins bit for bit (payload and
+visits) on their frame's five queries, on a seeded tie-heavy query, on a
+seeded signed-zero query (exact zeros in the plane form's fields), on the
+primary query re-culled at ray_block 2048 (and, for the plane form, 8192 and
+16384) and on its first 65,536 rays as one ray block of 65,536, under the
+wrapper's thread layout and under every layout each is timed in; per query
+they print the active clusters and visits per ray block and the long pole
+(the heaviest block launched alone), and the plane form the share of
+(warp, slot step) pairs that pass each of its two warp votes.
 It also renders the 1024 x 1024 Cornell box through the brute-force path
 and the plain "wavefront" BVH walks at 64 x 64, checks the images, and
 prints times beside the card's name and power limit.  The last two lines of
@@ -41,6 +45,7 @@ from wc_path_tracer_tpu_torch import RenderConfig
 from wc_path_tracer_tpu_torch.kernels import build, cluster, traversal
 from wc_path_tracer_tpu_torch.models.builtin import cornell_box_scene
 from wc_path_tracer_tpu_torch.models.procedural import (bunny_gltf_scene,
+                                                         signed_zero_query,
                                                          tie_heavy_query)
 from wc_path_tracer_tpu_torch.render import dispatch, golden, sweep, wavefront
 from wc_path_tracer_tpu_torch.scene.camera import camera_matrices
@@ -60,8 +65,9 @@ OPS_PER_SLAB = 22
 OPS_PER_POP = 3
 OPS_PER_INNER = 2 * OPS_PER_SLAB + 3   # the children's slabs + the choice
 PLANE_T_RTOL = 5e-5          # B2 vs MT t: see mxu_phase
-# B1 layouts timed against each other: (CTAs per ray block, threads per ray)
-B1_LAYOUTS = [(1, 1), (2, 2), (2, 4), (4, 2), (4, 4), (8, 4)]
+# sweep layouts timed against each other: (CTAs per ray block, threads per
+# ray), for B1 and for B2
+LAYOUTS = [(1, 1), (2, 2), (2, 4), (4, 2), (4, 4), (8, 4)]
 BUNNY = dict(width=512, height=512, samples=1, max_bounces=4, sky="gradient")
 CORNELL = dict(width=1024, height=1024, samples=1, max_bounces=4,
                sky="gradient")
@@ -173,63 +179,116 @@ def spread(x):
 
 
 def primary_rays(query):
-    """(origin, direction, t_init) of a captured B1 query's rays."""
+    """(origin, direction, t_init) of a captured sweep query's rays."""
     rays, prev = query[3].view(-1, 16), query[4].view(-1, 16)
     return (rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous(),
             prev[:, 0].contiguous())
 
 
-def b1_sweep_both(query, ray_block):
-    """One cluster_sweep of ``query`` (origin, direction, t_init, tris,
-    cmin, cmax) whose block sweep runs B1 and its plain twin on the same
-    inputs -> (kernel payload, twin payload, kernel visits, twin visits,
-    nact)."""
+def sweep_fns(mxu):
+    """(kernel wrapper, plain twin) of B2 (``mxu``) or B1."""
+    if mxu:
+        return cluster.cluster_sweep_mxu_kernel, cluster.cluster_sweep_mxu_plain
+    return cluster.cluster_sweep_kernel, cluster.cluster_sweep_plain
+
+
+def sweep_both(query, ray_block):
+    """One cluster_sweep of ``query`` (origin, direction, t_init, then the
+    tables: tris, cmin, cmax for B1; trisW, cmin, cmax, mat_tbl for B2)
+    whose block sweep runs the kernel and its plain twin on the same inputs
+    -> (kernel payload, twin payload, kernel visits, twin visits, nact)."""
+    mxu = len(query) == 7
+    kernel, plain = sweep_fns(mxu)
     seen = {}
 
-    def both(nact, clist, bt0, rays, prev, tris):
-        vk = torch.zeros_like(nact)
-        vp = torch.zeros_like(nact)
-        seen.update(
-            k=cluster.cluster_sweep_kernel(nact, clist, bt0, rays, prev,
-                                           tris, vk),
-            p=cluster.cluster_sweep_plain(nact, clist, bt0, rays, prev, tris,
-                                          vp),
-            vk=vk, vp=vp, nact=nact)
+    def both(*args):
+        vk = torch.zeros_like(args[0])
+        vp = torch.zeros_like(args[0])
+        seen.update(k=kernel(*args, vk), p=plain(*args, vp), vk=vk, vp=vp,
+                    nact=args[0])
         return seen["k"]
 
+    kw = dict(variant="mxu", mat_tbl=query[6]) if mxu else {}
     with torch.no_grad():
-        cluster.cluster_sweep(*query, ray_block=ray_block, block_fn=both)
+        cluster.cluster_sweep(*query[:6], ray_block=ray_block, block_fn=both,
+                              **kw)
     torch.cuda.synchronize()
     return seen["k"], seen["p"], seen["vk"], seen["vp"], seen["nact"]
 
 
-def b1_parity(q, k, p, vk, vp, nact):
-    """B1 payload and visits against its twin's, printed as one record."""
+def sweep_parity(q, k, p, vk, vp, nact, kind=""):
+    """A kernel's payload and visits against its twin's, printed as one
+    record (``kind`` "mxu " for B2)."""
     rec = dict(query=q, bitwise=bool(torch.equal(k, p)),
                max_abs_err=float((k - p).abs().max()),
                visits_equal=bool(torch.equal(vk, vp)),
                visits=int(vk.sum()), nact=int(nact.sum()),
                hits=int((p[..., 11] >= 0).sum()))
-    print(f"[parity] query {q}: {json.dumps(rec)}", flush=True)
+    print(f"[parity] {kind}query {q}: {json.dumps(rec)}", flush=True)
     return rec
 
 
-def b1_layout_ms(args, want):
-    """B1's ms per launch on one query under each layout of B1_LAYOUTS (CTAs
-    per ray block, threads per ray), the wrapper's choice replaced for the
-    call -> ({layout: ms}, whether every layout's payload equals ``want``)."""
+def extra_parity(cases, kind=""):
+    """Kernel vs twin, bitwise in payload and visits, on each (label, query,
+    ray_block) -> {label: record}."""
+    extra = {}
+    for label, query, rb in cases:
+        k, p, vk, vp, nact = sweep_both(query, rb)
+        rec = sweep_parity(label, k, p, vk, vp, nact, kind)
+        rec.update(ray_block=rb, layout=cluster.sweep_layout(rb))
+        extra[label] = rec
+        check(rec["bitwise"] and rec["visits_equal"],
+              f"{kind}{label} query (ray_block {rb}): payload and visits "
+              "equal the plain twin's bit for bit")
+    return extra
+
+
+def layout_ms(args, want, want_visits, mxu=False):
+    """A sweep kernel's ms per launch on one query under each layout of
+    LAYOUTS (CTAs per ray block, threads per ray), the wrapper's choice
+    replaced for the call -> ({layout: ms}, whether every layout's payload
+    and visits equal ``want`` and ``want_visits``)."""
+    kernel = sweep_fns(mxu)[0]
     chosen, out, same = cluster.sweep_layout, {}, True
     try:
-        for lay in B1_LAYOUTS:
-            cluster.sweep_layout = lambda B, lay=lay: lay
-            got = cluster.cluster_sweep_kernel(*args)
+        for lay in LAYOUTS:
+            cluster.sweep_layout = lambda B, lay=lay: lay + (1,)
+            visits = torch.zeros_like(args[0])
+            got = kernel(*args, visits)
             torch.cuda.synchronize()
-            same = same and bool(torch.equal(got, want))
-            out[f"{lay[0]}x{lay[1]}"] = event_ms(
-                lambda: cluster.cluster_sweep_kernel(*args), 20)
+            same = same and bool(torch.equal(got, want)
+                                 and torch.equal(visits, want_visits))
+            out[f"{lay[0]}x{lay[1]}"] = event_ms(lambda: kernel(*args), 20)
     finally:
         cluster.sweep_layout = chosen
     return out, same
+
+
+def long_pole(args, visits, mxu=False):
+    """(ms per visit, ms) of the heaviest ray block launched alone: its ms
+    per visit times the most visits of the query is what the launch would
+    take if that block alone bound it."""
+    kernel = sweep_fns(mxu)[0]
+    b = int(torch.argmax(visits))
+    alone = event_ms(lambda: kernel(*(x[b:b + 1] for x in args[:5]),
+                                    *args[5:]), 20)
+    per_visit = alone / int(visits[b])
+    return per_visit, int(visits.max()) * per_visit
+
+
+def print_visits(kind, q, rec, RB, C, ms, smi, default):
+    na, vi = rec["nact_per_block"], rec["visits_per_block"]
+    print(f"[visits] {kind}query {q}: nact per block mean {na['mean']:.1f} "
+          f"p90 {na['p90']:.0f} max {na['max']}; visits per block mean "
+          f"{vi['mean']:.1f} p90 {vi['p90']:.0f} max {vi['max']}; "
+          f"{rec['blocks_visiting_half']} of {RB} blocks visit >= half "
+          f"of {C} clusters; long pole {rec['long_pole_ms']:.3f} ms = "
+          f"{vi['max']} visits x {rec['ms_per_visit_alone'] * 1e3:.2f} us "
+          f"per visit (heaviest block alone), launch {ms:.3f} ms", flush=True)
+    print(f"[layouts] {kind}query {q}: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in rec["layouts_ms"].items())
+        + f" (CTAs x threads per ray; default {default}), on {smi}",
+        flush=True)
 
 
 def sm_clock(fn, reps=500):
@@ -374,17 +433,17 @@ def pallas_phase(smi, cfg):
 
 
 def mxu_phase(smi, scene, mats, cfg):
-    """The cluster_kernel="mxu" path: capture, parity (against its twin and
-    against the MT kernel), serving, times.  Returns the kernel's JSON
-    entry."""
+    """The cluster_kernel="mxu" path: capture, parity (against its twin under
+    every timed layout, on the extra queries and ray blocks, and against
+    the MT kernel), visits, long pole, vote shares, serving, times.
+    Returns the kernel's JSON entry."""
     cfg = cfg.replace(cluster_kernel="mxu")
+    kernel, plain_fn = sweep_fns(True)
     queries = []
 
-    def capture(nact, clist, bt0, rays, prev, trisW, mat_tbl):
-        queries.append([x.clone() for x in (nact, clist, bt0, rays, prev,
-                                            trisW, mat_tbl)])
-        return cluster.cluster_sweep_mxu_kernel(nact, clist, bt0, rays, prev,
-                                                trisW, mat_tbl)
+    def capture(*args):
+        queries.append([x.clone() for x in args])
+        return kernel(*args)
 
     with torch.no_grad():
         golden.render_frame(scene, mats, cfg, 0, intersect_fn=sweep
@@ -392,14 +451,17 @@ def mxu_phase(smi, scene, mats, cfg):
     check(len(queries) == cfg.max_bounces + 1,
           f"one mxu frame makes {cfg.max_bounces + 1} sweep queries")
     RB, B = queries[0][3].shape[:2]
+    C = queries[0][6].shape[0]
     tris_mt = cluster.build_cluster_tables(scene.mesh)[0]
 
-    parity, per_query = [], []
+    parity, per_query, layouts_same = [], [], True
     for q, args in enumerate(queries):
         vk = torch.zeros(RB, dtype=torch.int32, device="cuda")
         vp = torch.zeros_like(vk)
-        k = cluster.cluster_sweep_mxu_kernel(*args, vk)
-        p = cluster.cluster_sweep_mxu_plain(*args, vp)
+        counts = torch.zeros(3, dtype=torch.int64, device="cuda")
+        k = kernel(*args, vk)
+        p = plain_fn(*args, vp)
+        kc = kernel(*args, None, counts)
         mt = cluster.cluster_sweep_kernel(*args[:5], tris_mt)
         torch.cuda.synchronize()
         hk, hm = k[..., 11] >= 0, mt[..., 11] >= 0
@@ -408,18 +470,19 @@ def mxu_phase(smi, scene, mats, cfg):
         t_mt = mt[..., 0][both]
         rel = float((dt / t_mt).max()) if dt.numel() else 0.0
         rel1 = float((dt / t_mt.clamp_min(1.0)).max()) if dt.numel() else 0.0
-        rec = dict(query=q, bitwise=bool(torch.equal(k, p)),
-                   max_abs_err=float((k - p).abs().max()),
-                   visits_equal=bool(torch.equal(vk, vp)),
-                   visits=int(vk.sum()), hits=int(hk.sum()),
-                   hits_differ_from_mt=int((hk != hm).sum()),
+        rec = sweep_parity(q, k, p, vk, vp, args[0], "mxu ")
+        rec.update(hits_differ_from_mt=int((hk != hm).sum()),
                    max_rel_dt_vs_mt=rel, max_dt_over_max_t_1=rel1,
                    slots_equal_mt=float((k[..., 11] == mt[..., 11])
                                         .float().mean()))
         parity.append(rec)
-        print(f"[parity] mxu query {q}: {json.dumps(rec)}", flush=True)
+        print(f"[parity] mxu query {q} vs MT: hits differ on "
+              f"{rec['hits_differ_from_mt']} rays, max |dt|/t {rel:.3g}, "
+              f"max |dt|/max(t, 1) {rel1:.3g}", flush=True)
         check(rec["bitwise"] and rec["visits_equal"],
               f"mxu query {q}: kernel equals its plain twin bit for bit")
+        check(torch.equal(kc, k), f"mxu query {q}: the vote-counting build "
+              "gives the same payload")
         # the plane form's t = -P / Q loses digits where the ray grazes the
         # plane (Q = n.d cancels): primary rays are held to |dt| <= 5e-5 t.
         # Bounce rays start on a surface, where t is tiny and P cancels too,
@@ -432,14 +495,32 @@ def mxu_phase(smi, scene, mats, cfg):
         visits = int(vk.sum())
         ops = visits * B * cluster.CLUSTER_TRIS * OPS_PER_PLANE_TEST
         bound_ms, bound_by = bound(ops, nbytes(*args) + nbytes(args[4]))
-        ms = event_ms(lambda: cluster.cluster_sweep_mxu_kernel(*args), 20)
-        plain = event_ms(lambda: cluster.cluster_sweep_mxu_plain(*args), 1)
-        per_query.append(dict(query=q, ms=ms, plain_ms=plain,
-                              bound_ms=bound_ms, bound_by=bound_by,
-                              visits=visits))
+        ms = event_ms(lambda: kernel(*args), 20)
+        plain = event_ms(lambda: plain_fn(*args), 1)
+        per_visit, pole = long_pole(args, vk, mxu=True)
+        layouts, same = layout_ms(args, p, vp, mxu=True)
+        layouts_same = layouts_same and same
+        tested, vote1, vote2 = counts.tolist()
+        rec = dict(query=q, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                   bound_by=bound_by, visits=visits,
+                   nact_per_block=spread(args[0]),
+                   visits_per_block=spread(vk),
+                   blocks_visiting_half=int((vk >= (C + 1) // 2).sum()),
+                   ms_per_visit_alone=per_visit, long_pole_ms=pole,
+                   layouts_ms=layouts, warp_slot_steps=tested,
+                   t_vote_pass_share=vote1 / max(tested, 1),
+                   u_vote_pass_share=vote2 / max(tested, 1))
+        per_query.append(rec)
         print(f"[kernel] cluster_sweep_mxu query {q}: {ms:.3f} ms (plain "
               f"{plain:.1f} ms), bound {bound_ms:.3f} ms ({bound_by}), "
               f"{visits} block-cluster visits, on {smi}", flush=True)
+        print_visits("mxu ", q, rec, RB, C, ms, smi, "x".join(
+            map(str, cluster.sweep_layout(B)[:2])))
+        print(f"[votes] mxu query {q}: {tested} (warp, slot step) pairs; "
+              f"{rec['t_vote_pass_share']:.4f} pass the t vote, "
+              f"{rec['u_vote_pass_share']:.4f} also the u vote", flush=True)
+    check(layouts_same, "every B2 layout gives the twin's payload and visits "
+          "on every query")
 
     cluster.cluster_sweep_mxu_kernel.launches = 0
     cluster.cluster_sweep_kernel.launches = 0
@@ -464,6 +545,20 @@ def mxu_phase(smi, scene, mats, cfg):
           f"{agree:.6f} within 1e-3", flush=True)
     check(agree >= 0.99, "the mxu frame matches the MT frame to 1e-3 on "
           f"{agree:.4f} of pixels (>= 0.99)")
+
+    # tie-heavy and signed-zero queries as plane-form tables, the primary
+    # query re-culled at larger ray blocks, its first 65,536 rays as one
+    tables = cluster.build_cluster_tables_mxu(scene.mesh)
+    o, d, t0 = primary_rays(queries[0])
+    extra = extra_parity([
+        ("tie-heavy", tie_heavy_query(65536, 32, seed=7, device="cuda",
+                                      variant="mxu"), cluster.RAY_BLOCK),
+        ("signed-zero", signed_zero_query(65536, 32, seed=11, device="cuda"),
+         cluster.RAY_BLOCK)]
+        + [(f"primary rb {rb}", (o, d, t0) + tables, rb)
+           for rb in (2048, 8192, 16384)]
+        + [("primary 65536 rays rb 65536",
+            (o[:65536], d[:65536], t0[:65536]) + tables, 65536)], "mxu ")
     return dict(
         name="cluster_sweep_mxu", route="cuda",
         source="wc_path_tracer_tpu_torch/kernels/csrc/cluster_sweep_mxu.cu",
@@ -473,7 +568,8 @@ def mxu_phase(smi, scene, mats, cfg):
         **mean_entry(per_query),
         library_ms=None,
         ms_note="mean per launch over one 512^2 mxu frame's 5 queries",
-        parity=parity, per_query=per_query, card=smi, frame_ms=frame_ms,
+        parity=parity, parity_extra=extra, per_query=per_query,
+        layout=cluster.sweep_layout(B), card=smi, frame_ms=frame_ms,
         mrays_s=segments / (frame_ms / 1e3) / 1e6, peak_gib=peak,
         frame_vs_mt_within_2e5=exact)
 
@@ -540,32 +636,29 @@ def main() -> int:
         k = cluster.cluster_sweep_kernel(*args, vk)
         p = cluster.cluster_sweep_plain(*args, vp)
         torch.cuda.synchronize()
-        rec = b1_parity(q, k, p, vk, vp, args[0])
+        rec = sweep_parity(q, k, p, vk, vp, args[0])
         parity.append(rec)
         check(rec["bitwise"] and rec["visits_equal"],
               f"query {q}: payload and visits equal the plain twin's bit "
               "for bit")
 
-    # tie-heavy query, and the primary query at ray_block 2048
-    extra = {}
-    for label, q_args in (
-            ("tie-heavy", tie_heavy_query(65536, 32, seed=7, device="cuda")),
-            ("primary rb 2048", primary_rays(queries[0]) + tables)):
-        rb = 2048 if label.endswith("2048") else cluster.RAY_BLOCK
-        k, p, vk, vp, nact = b1_sweep_both(q_args, rb)
-        rec = b1_parity(label, k, p, vk, vp, nact)
-        rec.update(ray_block=rb, layout=cluster.sweep_layout(rb))
-        if label == "tie-heavy":
-            o, d, t0 = q_args[:3]
-            ref = torch.cat([cluster.sweep_reference(
-                o[i:i + 8192], d[i:i + 8192], t0[i:i + 8192], *q_args[3:])
-                for i in range(0, o.shape[0], 8192)])
-            differ = k.view(-1, 16)[:, 11] != ref[:, 11]
-            rec["slots_differ_from_global_first_min"] = int(differ.sum())
-        extra[label] = rec
-        check(rec["bitwise"] and rec["visits_equal"],
-              f"{label} query (ray_block {rb}): payload and visits equal "
-              "the plain twin's bit for bit")
+    # tie-heavy and signed-zero queries, the primary query re-culled at
+    # ray_block 2048, and its first 65,536 rays as one ray block
+    tie = tie_heavy_query(65536, 32, seed=7, device="cuda")
+    o, d, t0 = primary_rays(queries[0])
+    extra = extra_parity([
+        ("tie-heavy", tie, cluster.RAY_BLOCK),
+        ("signed-zero", signed_zero_query(65536, 32, seed=11, device="cuda",
+                                          variant="mt"), cluster.RAY_BLOCK),
+        ("primary rb 2048", (o, d, t0) + tables, 2048),
+        ("primary 65536 rays rb 65536",
+         (o[:65536], d[:65536], t0[:65536]) + tables, 65536)])
+    k = cluster.cluster_sweep(*tie).view(-1, 16)
+    ref = torch.cat([cluster.sweep_reference(
+        tie[0][i:i + 8192], tie[1][i:i + 8192], tie[2][i:i + 8192], *tie[3:])
+        for i in range(0, tie[0].shape[0], 8192)])
+    extra["tie-heavy"]["slots_differ_from_global_first_min"] = int(
+        (k[:, 11] != ref[:, 11]).sum())
 
     # kernel vs the independent brute oracle on 65,536 primary rays
     nact, clist, bt0, rays, prev, tris = queries[0]
@@ -645,9 +738,6 @@ def main() -> int:
     b2 = mxu_phase(smi, scene, mats, cfg)
 
     # -- 8. B1 kernel times against the bound, per launch -------------------
-    # The long pole of a launch is the block with the most visits: it is
-    # launched alone, and its ms per visit times the most visits of the
-    # query is what the launch would take if that block alone bound it.
     per_query, layouts_same = [], True
     for q, args in enumerate(queries):
         visits = torch.zeros(RB, dtype=torch.int32, device="cuda")
@@ -656,40 +746,25 @@ def main() -> int:
         plain = event_ms(lambda: cluster.cluster_sweep_plain(*args), 2)
         ops = int(visits.sum()) * B * cluster.CLUSTER_TRIS * OPS_PER_TEST
         bound_ms, bound_by = bound(ops, nbytes(*args) + nbytes(args[4]))
-        b = int(torch.argmax(visits))
-        alone = event_ms(lambda: cluster.cluster_sweep_kernel(
-            *(x[b:b + 1] for x in args[:5]), args[5]), 20)
-        per_visit = alone / int(visits[b])
-        layouts, same = b1_layout_ms(args, want)
+        per_visit, pole = long_pole(args, visits)
+        layouts, same = layout_ms(args, want, visits)
         layouts_same = layouts_same and same
         rec = dict(query=q, ms=ms, plain_ms=plain, bound_ms=bound_ms,
                    bound_by=bound_by, visits=int(visits.sum()),
                    nact_per_block=spread(args[0]),
                    visits_per_block=spread(visits),
                    blocks_visiting_half=int((visits >= (C + 1) // 2).sum()),
-                   ms_per_visit_alone=per_visit,
-                   long_pole_ms=int(visits.max()) * per_visit,
+                   ms_per_visit_alone=per_visit, long_pole_ms=pole,
                    layouts_ms=layouts)
         per_query.append(rec)
         print(f"[kernel] query {q}: {ms:.3f} ms (plain {plain:.1f} ms), "
               f"bound {bound_ms:.3f} ms ({bound_by}), "
               f"{int(visits.sum())} block-cluster visits, on {smi}",
               flush=True)
-        na, vi = rec["nact_per_block"], rec["visits_per_block"]
-        print(f"[visits] query {q}: nact per block mean {na['mean']:.1f} "
-              f"p90 {na['p90']:.0f} max {na['max']}; visits per block mean "
-              f"{vi['mean']:.1f} p90 {vi['p90']:.0f} max {vi['max']}; "
-              f"{rec['blocks_visiting_half']} of {RB} blocks visit >= half "
-              f"of {C} clusters; long pole {rec['long_pole_ms']:.3f} ms = "
-              f"{vi['max']} visits x {per_visit * 1e3:.2f} us per visit "
-              f"(heaviest block alone), launch {ms:.3f} ms", flush=True)
-        print(f"[layouts] query {q}: " + ", ".join(
-            f"{k} {v:.3f} ms" for k, v in layouts.items())
-            + f" (CTAs x threads per ray; default "
-            f"{'x'.join(map(str, cluster.sweep_layout(B)))}), on {smi}",
-            flush=True)
-    check(layouts_same, "every B1 layout gives the same payload on every "
-          "query")
+        print_visits("", q, rec, RB, C, ms, smi, "x".join(
+            map(str, cluster.sweep_layout(B)[:2])))
+    check(layouts_same, "every B1 layout gives the same payload and visits "
+          "on every query")
     clock = sm_clock(lambda: cluster.cluster_sweep_kernel(*queries[1]))
     print(f"[kernel] SM clock, max SM clock, power while B1 runs: {clock}",
           flush=True)

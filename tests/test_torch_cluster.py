@@ -17,6 +17,7 @@ from wc_path_tracer_tpu.models.procedural import bunny_like_scene as j_bunny
 
 from wc_path_tracer_tpu_torch.kernels import cluster
 from wc_path_tracer_tpu_torch.models.procedural import (bunny_like_scene,
+                                                         signed_zero_query,
                                                          tie_heavy_query)
 
 torch.set_num_threads(2)
@@ -138,7 +139,7 @@ def test_plain_twin_visits_and_early_exit(case):
     torch.testing.assert_close(seen["out"], seen["full"], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("ray_block", [512, 2048])
+@pytest.mark.parametrize("ray_block", [512, 2048, 8192])
 def test_tie_heavy_twin_equals_jax_kernel(ray_block):
     """Exact t-ties within and across clusters (``tie_heavy_query``): the
     twin's payload equals the JAX kernel's bit for bit, slot ids included,
@@ -158,20 +159,47 @@ def test_tie_heavy_twin_equals_jax_kernel(ray_block):
 
 
 def test_kernel_wrappers_take_ray_blocks_up_to_4096(case):
+    """Both sweep wrappers take every ray block the config accepts: at
+    2048, 4096 and 8192 the same closest t and hits as at 512 (a
+    cross-cluster t-tie may go to another copy under another block
+    composition)."""
     o, d, t0 = (_t(case[k][:600]) for k in ("o", "d", "t_init"))
-    want = cluster.cluster_sweep(o, d, t0, *case["tt"])
-    for rb in (2048, 4096):
-        # the same closest t on every ray (a cross-cluster t-tie may go to
-        # another copy under another block composition)
-        got = cluster.cluster_sweep(o, d, t0, *case["tt"], ray_block=rb)
-        assert torch.equal(got[:, 0], want[:, 0])
-        assert torch.equal(got[:, 11] >= 0, want[:, 11] >= 0)
     tw, cmin, cmax, mat = cluster.build_cluster_tables_mxu(case["tscene"].mesh)
     for variant, tables, kw in (("mt", case["tt"], {}),
                                 ("mxu", (tw, cmin, cmax), dict(mat_tbl=mat))):
-        with pytest.raises(ValueError, match="4096"):
-            cluster.cluster_sweep(o, d, t0, *tables, ray_block=8192,
-                                  variant=variant, **kw)
+        want = cluster.cluster_sweep(o, d, t0, *tables, variant=variant, **kw)
+        for rb in (2048, 4096, 8192):
+            got = cluster.cluster_sweep(o, d, t0, *tables, ray_block=rb,
+                                        variant=variant, **kw)
+            assert torch.equal(got[:, 0], want[:, 0])
+            assert torch.equal(got[:, 11] >= 0, want[:, 11] >= 0)
+
+
+@pytest.mark.parametrize("ray_block", [8, 512, 1000, 2048, 4096, 8192, 16384,
+                                       65536, 100000])
+def test_sweep_layout_holds_every_ray_block(ray_block):
+    """(CTAs, threads per ray, passes) fit a thread block cluster (at most 8
+    CTAs of 1,024 threads) and cover every ray of the block; one pass up to
+    8,192 rays, and the 512-ray main path keeps 4 CTAs x 4 threads."""
+    ctas, groups, passes = cluster.sweep_layout(ray_block)
+    per_cta = -(-ray_block // (ctas * passes))
+    assert 1 <= ctas <= 8 and groups in (1, 2, 4, 8)
+    assert per_cta * groups <= 1024
+    assert ctas * passes * per_cta >= ray_block
+    assert (passes == 1) == (ray_block <= 8192)
+    assert cluster.sweep_layout(512) == (4, 4, 1)
+
+
+def test_signed_zero_twin_equals_jax_kernel():
+    """Rays parallel to axis-aligned triangles, origins in their planes and
+    hits on their edges (``signed_zero_query``): the twin's payload equals
+    the JAX kernel's bit for bit."""
+    q = signed_zero_query(2048, 6, seed=5, device="cpu", variant="mt")
+    got = cluster.cluster_sweep(*q, ray_block=256)
+    want = np.asarray(jcluster.cluster_sweep(
+        *(jnp.asarray(x.numpy()) for x in q), interpret=True, ray_block=256))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int((got[:, 11] >= 0).sum()) > 500
 
 
 def test_kernel_wrapper_runs_the_twin_on_cpu(case):

@@ -16,6 +16,7 @@ import torch
 from wc_path_tracer_tpu_torch import RenderConfig
 from wc_path_tracer_tpu_torch.kernels import cluster, traversal
 from wc_path_tracer_tpu_torch.models.procedural import (bunny_like_scene,
+                                                         signed_zero_query,
                                                          tie_heavy_query)
 from wc_path_tracer_tpu_torch.render import golden, sweep, wavefront
 from wc_path_tracer_tpu_torch.scene.camera import camera_matrices
@@ -42,22 +43,26 @@ def _rays(n, seed, device):
 
 def _sweep_both(o, d, t0, tables, ray_block):
     """One cluster_sweep whose block sweep runs the kernel and its twin on
-    the same inputs -> (kernel, twin, kernel visits, twin visits)."""
+    the same inputs -> (kernel, twin, kernel visits, twin visits).  Tables
+    of 4 (``build_cluster_tables_mxu``) select the plane-form kernel."""
+    mxu = len(tables) == 4
+    kernel, plain = ((cluster.cluster_sweep_mxu_kernel,
+                      cluster.cluster_sweep_mxu_plain) if mxu else
+                     (cluster.cluster_sweep_kernel, cluster.cluster_sweep_plain))
     seen = {}
 
-    def both(nact, clist, bt0, rays, prev, tris):
-        vk = torch.zeros_like(nact)
-        vp = torch.zeros_like(nact)
-        k = cluster.cluster_sweep_kernel(nact, clist, bt0, rays, prev, tris, vk)
-        p = cluster.cluster_sweep_plain(nact, clist, bt0, rays, prev, tris, vp)
-        seen.update(k=k, p=p, vk=vk, vp=vp)
-        return k
+    def both(*args):
+        vk = torch.zeros_like(args[0])
+        vp = torch.zeros_like(args[0])
+        seen.update(k=kernel(*args, vk), p=plain(*args, vp), vk=vk, vp=vp)
+        return seen["k"]
 
-    before = cluster.cluster_sweep_kernel.launches
-    cluster.cluster_sweep(o, d, t0, *tables, ray_block=ray_block,
-                          block_fn=both)
+    before = kernel.launches
+    kw = dict(variant="mxu", mat_tbl=tables[3]) if mxu else {}
+    cluster.cluster_sweep(o, d, t0, *tables[:3], ray_block=ray_block,
+                          block_fn=both, **kw)
     torch.cuda.synchronize()
-    assert cluster.cluster_sweep_kernel.launches == before + 1
+    assert kernel.launches == before + 1
     return seen["k"], seen["p"], seen["vk"], seen["vp"]
 
 
@@ -84,7 +89,7 @@ def test_kernel_layouts_match_plain_twin(ctas, groups, monkeypatch):
     _need_card()
     monkeypatch.setattr(cluster, "SWEEP_CTAS", ctas)
     monkeypatch.setattr(cluster, "SWEEP_GROUPS", groups)
-    assert cluster.sweep_layout(1024) == (ctas, groups)
+    assert cluster.sweep_layout(1024) == (ctas, groups, 1)
     scene, _ = bunny_like_scene(3, device="cuda")
     tables = cluster.build_cluster_tables(scene.mesh)
     o, d, t0 = _rays(8192, 4, "cuda")
@@ -161,6 +166,81 @@ def test_mxu_kernel_matches_plain_twin(ray_block):
     assert torch.equal(seen["k"], seen["p"])
     assert torch.equal(seen["vk"], seen["vp"])
     assert int((seen["k"][..., 11] >= 0).sum()) > 500
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ctas, groups", [(1, 1), (2, 2), (2, 4), (4, 2),
+                                          (4, 4), (8, 4)])
+@pytest.mark.parametrize("query", ["tie-heavy", "signed-zero"])
+def test_mxu_kernel_layouts_match_plain_twin(query, ctas, groups,
+                                             monkeypatch):
+    """The plane-form kernel under every layout it is timed in, on exact
+    t-ties and on tests that pass through exact zeros (Q, P, Bu, Bv):
+    payload and visits equal the twin's."""
+    _need_card()
+    monkeypatch.setattr(cluster, "sweep_layout",
+                        lambda B: (ctas, groups, 1))
+    make = tie_heavy_query if query == "tie-heavy" else signed_zero_query
+    o, d, t0, *tables = make(8192, 12, seed=3, device="cuda", variant="mxu")
+    k, p, vk, vp = _sweep_both(o, d, t0, tables, 512)
+    assert torch.equal(k, p) and torch.equal(vk, vp)
+    assert int((k[..., 11] >= 0).sum()) > 1000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["mt", "mxu"])
+@pytest.mark.parametrize("ray_block", [8192, 16384, 65536])
+def test_kernels_take_large_ray_blocks(variant, ray_block):
+    """Ray blocks past one ray per thread of a full thread block cluster
+    (several passes per visit above 8,192 rays): both kernels equal their
+    twins."""
+    _need_card()
+    scene, _ = bunny_like_scene(3, device="cuda")
+    tables = (cluster.build_cluster_tables_mxu(scene.mesh) if variant == "mxu"
+              else cluster.build_cluster_tables(scene.mesh))
+    o, d, t0 = _rays(70000, 5, "cuda")
+    k, p, vk, vp = _sweep_both(o, d, t0, tables, ray_block)
+    assert torch.equal(k, p) and torch.equal(vk, vp)
+    assert int((k[..., 11] >= 0).sum()) > 10000
+
+
+@pytest.mark.gpu
+def test_mxu_vote_counts():
+    """The counting build gives the same payload, and its counts nest:
+    slot steps tested >= passed the t vote >= passed the u vote > 0."""
+    _need_card()
+    o, d, t0, *tables = signed_zero_query(8192, 12, seed=4, device="cuda",
+                                          variant="mxu")
+    seen = {}
+
+    def counted(*args):
+        counts = torch.zeros(3, dtype=torch.int64, device="cuda")
+        seen.update(plain=cluster.cluster_sweep_mxu_kernel(*args),
+                    counted=cluster.cluster_sweep_mxu_kernel(*args, None,
+                                                             counts),
+                    counts=counts)
+        return seen["plain"]
+
+    cluster.cluster_sweep(o, d, t0, *tables[:3], block_fn=counted,
+                          variant="mxu", mat_tbl=tables[3])
+    torch.cuda.synchronize()
+    assert torch.equal(seen["plain"], seen["counted"])
+    tested, vote1, vote2 = seen["counts"].tolist()
+    assert tested >= vote1 >= vote2 > 0
+
+
+@pytest.mark.gpu
+def test_mxu_wrapper_rejects_tables_not_of_the_plane_form():
+    _need_card()
+    scene, _ = bunny_like_scene(2, device="cuda")
+    tw, cmin, cmax, mat = cluster.build_cluster_tables_mxu(scene.mesh)
+    tw = tw.clone()
+    tw.view(-1, cluster.MXU_ROWS, cluster.MXU_FIELDS,
+            cluster.CLUSTER_TRIS)[0, 7, 1, 3] = 1.0
+    o, d, t0 = _rays(64, 3, "cuda")
+    with pytest.raises(ValueError, match="plane form"):
+        cluster.cluster_sweep(o, d, t0, tw, cmin, cmax, variant="mxu",
+                              mat_tbl=mat)
 
 
 @pytest.mark.gpu

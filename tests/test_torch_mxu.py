@@ -84,15 +84,17 @@ def test_mxu_tables_match_jax():
     assert not dead.any()
 
 
-def test_mxu_payload_matches_jax():
+def _assert_mxu_payload_matches_jax(ray_block):
     c = _case()
     o, d, t0 = c["o"], c["d"], c["t_init"]
     want = np.asarray(jcluster.cluster_sweep(
         jnp.asarray(o), jnp.asarray(d), jnp.asarray(t0), *c["jt"][:3],
-        interpret=True, variant="mxu", mat_tbl=c["jt"][3]))
+        interpret=True, variant="mxu", mat_tbl=c["jt"][3],
+        ray_block=ray_block))
     tw, cmin, cmax, mat = c["tt"]
     got = cluster.cluster_sweep(_t(o), _t(d), _t(t0), tw, cmin, cmax,
-                                variant="mxu", mat_tbl=mat).numpy()
+                                ray_block=ray_block, variant="mxu",
+                                mat_tbl=mat).numpy()
     hit = want[:, 11] >= 0
     assert hit.sum() > 200
     np.testing.assert_array_equal(got[:, 11] >= 0, hit)
@@ -104,6 +106,63 @@ def test_mxu_payload_matches_jax():
     # vertex and pad columns are zero, as in the JAX plane-form kernel
     np.testing.assert_array_equal(got[:, 1:10], want[:, 1:10])
     np.testing.assert_array_equal(got[:, 12:], 0.0)
+
+
+def test_mxu_payload_matches_jax():
+    _assert_mxu_payload_matches_jax(cluster.RAY_BLOCK)
+
+
+def test_mxu_payload_matches_jax_at_ray_block_8192():
+    """A ray block above what a thread block cluster holds one ray per
+    thread (the kernel's multi-pass form): the same agreement."""
+    _assert_mxu_payload_matches_jax(8192)
+
+
+def test_mxu_form_check_passes_port_and_jax_tables():
+    """Tables built by the port, and tables bridged from the JAX package,
+    have the plane form the CUDA kernel relies on; a table that passed is
+    not checked again until it is edited in place."""
+    c = _case()
+    cluster.check_mxu_form(c["tt"][0])
+    cluster.check_mxu_form(_t(c["jt"][0]))
+    tw = cluster.build_cluster_tables_mxu(
+        procedural.bunny_like_scene(3, device="cpu")[0].mesh)[0]
+    cluster.check_mxu_form(tw)
+    assert tw._mxu_form_version == tw._version
+    tw[0, 0] = 1.0            # row 0 of field Q: structural zero
+    with pytest.raises(ValueError, match="plane form"):
+        cluster.check_mxu_form(tw)
+
+
+@pytest.mark.parametrize("row, field", [(0, 0), (2, 2), (6, 4), (7, 0),
+                                        (4, 1), (7, 3), (5, 5)])
+def test_mxu_form_check_rejects_a_structural_entry(row, field):
+    """One non-zero structural entry (a d-field outside rows 3-5, an
+    o-field in rows 3-5 or 7) in one slot of one cluster is refused, by the
+    check and by the kernel wrapper on the CPU too."""
+    c = _case()
+    tw = c["tt"][0].clone()
+    tw.view(-1, cluster.MXU_ROWS, cluster.MXU_FIELDS,
+            cluster.CLUSTER_TRIS)[1, row, field, 77] = 0.5
+    with pytest.raises(ValueError, match="plane form"):
+        cluster.check_mxu_form(tw)
+    nact = torch.zeros(1, dtype=torch.int32)
+    rays = torch.zeros((1, 8, 16))
+    with pytest.raises(ValueError, match="plane form"):
+        cluster.cluster_sweep_mxu_kernel(
+            nact, torch.zeros((1, 3), dtype=torch.int32), torch.zeros((1, 3)),
+            rays, rays, tw, c["tt"][3])
+
+
+def test_mxu_form_check_rejects_a_copy_that_differs():
+    """n, au and av appear twice in a slab (d-field rows 3-5, o-field rows
+    0-2); the kernel reads one copy, so the two must be equal."""
+    c = _case()
+    tw = c["tt"][0].clone()
+    W = tw.view(-1, cluster.MXU_ROWS, cluster.MXU_FIELDS, cluster.CLUSTER_TRIS)
+    W[2, 1, 3, 5] = W[2, 1, 3, 5] + 1.0       # Au's copy of au.y
+    with pytest.raises(ValueError, match="plane form"):
+        cluster.check_mxu_form(tw)
 
 
 def test_mxu_payload_matches_mt():

@@ -2,8 +2,9 @@
 
 Each source ``csrc/<name>.cu`` exports plain C functions (declared in
 SIGNATURES) and is compiled on first use for Hopper (``sm_90a``) into
-``_build/lib<name>-<source hash>.so`` beside this file; a changed source
-gets a new library name, so a stale build is never loaded.  ``-fmad=false``
+``_build/lib<name>-<hash>.so`` beside this file, the hash taken over the
+source and the headers of ``csrc/``; a changed source or header gets a new
+library name, so a stale build is never loaded.  ``-fmad=false``
 keeps every multiply and add separately rounded, as PyTorch's op-by-op plain
 twins are, so kernel and twin agree bit for bit.  Nothing here runs at
 import: the CPU tests import every module and have no nvcc.
@@ -29,15 +30,17 @@ _I = ctypes.c_int
 # name -> {C function: (argtypes, restype)}
 SIGNATURES = {
     "cluster_sweep": {
-        # nact, clist, bt0, order, rays, prev, tris, out, visits, blocks,
-        # ray_block, clusters, CTAs per ray block, threads per ray, stream
-        "wc_cluster_sweep": ([_P] * 9 + [_I] * 5 + [_P], _I),
+        # nact, clist, bt0, order, rays, prev, tris, out, visits, state,
+        # blocks, ray_block, clusters, CTAs per ray block, threads per ray,
+        # passes per visit, stream
+        "wc_cluster_sweep": ([_P] * 10 + [_I] * 6 + [_P], _I),
         "wc_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "cluster_sweep_mxu": {
-        # nact, clist, bt0, rays, prev, trisW, mat_tbl, out, visits, blocks,
-        # ray_block, clusters, stream
-        "wc_cluster_sweep_mxu": ([_P] * 9 + [_I] * 3 + [_P], _I),
+        # nact, clist, bt0, order, rays, prev, trisW, mat_tbl, out, visits,
+        # state, counts, blocks, ray_block, clusters, CTAs per ray block,
+        # threads per ray, passes per visit, stream
+        "wc_cluster_sweep_mxu": ([_P] * 12 + [_I] * 6 + [_P], _I),
         "wc_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "bvh_walk": {
@@ -63,8 +66,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, named by a hash of its source, every header in
+    csrc/ and the flags."""
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu"]
+                   + sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
+        .hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -42,8 +42,7 @@ KINF = ix.KINFINITY
 CLUSTER_TRIS = 128   # triangle slots per cluster
 CLUSTER_ROWS = 16    # f32 rows per cluster slab: 9 coordinates, material, pad
 RAY_BLOCK = 512      # rays per kernel block (the JAX package's default)
-MAX_RAY_BLOCK = 4096  # largest ray block the CUDA sweep kernels take
-SWEEP_CTAS = 4       # CTAs sharing one 512-ray block in cluster_sweep.cu
+SWEEP_CTAS = 4       # CTAs sharing one 512-ray block in both sweep kernels
 SWEEP_GROUPS = 4     # threads per ray there, each testing 128 / 4 slots
 PAYLOAD_COLS = 16
 CULL_MATERIALIZE_ELEMS = 64 * 1024 * 1024   # largest (rays x clusters) cull
@@ -383,25 +382,56 @@ def cluster_sweep_mxu_plain(nact, clist, bt0, rays, prev, trisW, mat_tbl,
     return _winner_payload(t_best, win, cols, prev)
 
 
-def sweep_layout(ray_block: int) -> tuple[int, int]:
-    """(CTAs, lane groups) of csrc/cluster_sweep.cu for one ray block: a
-    thread block cluster of up to SWEEP_CTAS CTAs (one per 128 rays) holds
-    the block's rays, SWEEP_GROUPS threads per ray, each testing every
-    SWEEP_GROUPS-th slot.  Past 1,024 threads per CTA the cluster grows to
-    8 CTAs, then the groups shrink."""
+def sweep_layout(ray_block: int) -> tuple[int, int, int]:
+    """(CTAs, lane groups, passes) of both sweep kernels for one ray block
+    (csrc/sweep_skeleton.cuh): a thread block cluster of up to SWEEP_CTAS
+    CTAs, one per 128 rays, holds the block's rays, SWEEP_GROUPS threads
+    per ray, each testing every SWEEP_GROUPS-th slot.  Past 1,024 threads
+    per CTA the cluster grows to 8 CTAs, then the groups shrink to one
+    thread per ray; a ray block larger still (above 8,192 rays) takes
+    several passes per visit, 8,192 rays each."""
     ctas, groups = min(SWEEP_CTAS, max(1, ray_block // 128)), SWEEP_GROUPS
-    while -(-ray_block // ctas) * groups > 1024:
+    while -(-ray_block // ctas) * groups > 1024 and (ctas < 8 or groups > 1):
         if ctas < 8:
             ctas *= 2
         else:
             groups //= 2
-    return ctas, groups
+    return ctas, groups, -(-ray_block // (ctas * 1024 // groups))
 
 
-def _check_ray_block(B: int, who: str):
-    if not 1 <= B <= MAX_RAY_BLOCK:
-        raise ValueError(f"{who}: ray_block {B} not in [1, {MAX_RAY_BLOCK}] "
-                         f"(the kernels' limit)")
+def _scratch(rays, passes):
+    """The kernels' per-ray (t_best, winner) state for a ray block taken in
+    several passes, else None."""
+    if passes == 1:
+        return None
+    RB, B, _ = rays.shape
+    return torch.empty((RB * B, 2), dtype=torch.int32, device=rays.device)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def check_mxu_form(trisW) -> None:
+    """Raise unless ``trisW`` has the form ``mxu_tables_from_coords`` gives
+    it, which csrc/cluster_sweep_mxu.cu relies on: in each cluster's
+    (8, 6, 128) view the d-fields Q, Bu, Bv are zero outside rows 3-5, the
+    o-fields P, Au, Av zero in rows 3-5 and 7, and each o-field's rows 0-2
+    equal its d-field's rows 3-5 (n, au, av).  A table that passes
+    remembers the version it passed at, so a static table is checked once
+    (one host sync); an in-place edit is checked again."""
+    if getattr(trisW, "_mxu_form_version", None) == trisW._version:
+        return
+    W = trisW.reshape(-1, MXU_ROWS, MXU_FIELDS, CLUSTER_TRIS)
+    d_f, o_f = W[:, :, 0::2], W[:, :, 1::2]
+    zero = torch.cat([d_f[:, 0:3], d_f[:, 6:8], o_f[:, 3:6], o_f[:, 7:8]],
+                     dim=1)
+    if not bool(torch.all(zero == 0.0) & torch.all(d_f[:, 3:6] == o_f[:, 0:3])):
+        raise ValueError(
+            "cluster_sweep_mxu_kernel: trisW is not of the plane form of "
+            "mxu_tables_from_coords (a structural entry is not zero, or n, "
+            "au, av differ from their copies)")
+    trisW._mxu_form_version = trisW._version
 
 
 def cluster_sweep_kernel(nact, clist, bt0, rays, prev, tris, visits=None):
@@ -411,11 +441,10 @@ def cluster_sweep_kernel(nact, clist, bt0, rays, prev, tris, visits=None):
     On CUDA tensors this launches the Hopper kernel (csrc/cluster_sweep.cu)
     on the current stream without synchronising, and counts the launch in
     ``cluster_sweep_kernel.launches``; on CPU tensors it runs the plain
-    twin.  A ray block of more than MAX_RAY_BLOCK rays, any other device,
+    twin.  Any ray block size is taken (``sweep_layout``); any other device,
     dtype, shape or layout raises.  The kernel takes the ray blocks in order
     of falling ``nact`` (one device argsort here, no host sync).
     """
-    _check_ray_block(rays.shape[1], "cluster_sweep_kernel")
     if rays.device.type == "cpu":
         return cluster_sweep_plain(nact, clist, bt0, rays, prev, tris, visits)
     if rays.device.type != "cuda":
@@ -434,14 +463,15 @@ def cluster_sweep_kernel(nact, clist, bt0, rays, prev, tris, visits=None):
         if t is not None and t.device != rays.device:
             raise ValueError("cluster_sweep_kernel: tensors on different devices")
     out = torch.empty_like(prev)
+    ctas, groups, passes = sweep_layout(B)
+    state = _scratch(rays, passes)
     order = torch.argsort(nact, descending=True, stable=True).to(torch.int32)
     lib = build.load("cluster_sweep")
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     rc = lib.wc_cluster_sweep(
         nact.data_ptr(), clist.data_ptr(), bt0.data_ptr(), order.data_ptr(),
         rays.data_ptr(), prev.data_ptr(), tris.data_ptr(), out.data_ptr(),
-        visits.data_ptr() if visits is not None else None,
-        RB, B, C, *sweep_layout(B), stream)
+        _ptr(visits), _ptr(state), RB, B, C, ctas, groups, passes, stream)
     if rc != 0:
         raise RuntimeError("cluster_sweep kernel launch failed: "
                            + lib.wc_cuda_error_string(rc).decode())
@@ -453,7 +483,7 @@ cluster_sweep_kernel.launches = 0
 
 
 def cluster_sweep_mxu_kernel(nact, clist, bt0, rays, prev, trisW, mat_tbl,
-                             visits=None):
+                             visits=None, counts=None):
     """Sweep every ray block over its active clusters with the plane-form
     test (the inputs of ``cluster_sweep_mxu_plain``) -> payload (RB, B, 16).
 
@@ -461,12 +491,18 @@ def cluster_sweep_mxu_kernel(nact, clist, bt0, rays, prev, trisW, mat_tbl,
     (csrc/cluster_sweep_mxu.cu) on the current stream without
     synchronising, and counts the launch in
     ``cluster_sweep_mxu_kernel.launches``; on CPU tensors it runs the plain
-    twin.  A ray block of more than MAX_RAY_BLOCK rays, any other device,
-    dtype, shape or layout raises.
+    twin.  On both, ``trisW`` must pass ``check_mxu_form``.  Any ray block
+    size is taken (``sweep_layout``); any other device, dtype, shape or
+    layout raises.  The kernel takes the ray blocks in order of falling
+    ``nact``.  ``counts`` (3,) int64 on the card, if given, receives the
+    kernel's (warp, slot step) pairs tested and those that passed its t and
+    u votes (ray blocks taken in one pass only).
     """
     who = "cluster_sweep_mxu_kernel"
-    _check_ray_block(rays.shape[1], who)
     if rays.device.type == "cpu":
+        if counts is not None:
+            raise ValueError(f"{who}: vote counts exist on the card only")
+        check_mxu_form(trisW)
         return cluster_sweep_mxu_plain(nact, clist, bt0, rays, prev, trisW,
                                        mat_tbl, visits)
     if rays.device.type != "cuda":
@@ -483,17 +519,26 @@ def cluster_sweep_mxu_kernel(nact, clist, bt0, rays, prev, trisW, mat_tbl,
     _check(bt0, torch.float32, (RB, C), "bt0", who)
     if visits is not None:
         _check(visits, torch.int32, (RB,), "visits", who)
-    for t in (prev, trisW, mat_tbl, nact, clist, bt0, visits):
+    if counts is not None:
+        _check(counts, torch.int64, (3,), "counts", who)
+    for t in (prev, trisW, mat_tbl, nact, clist, bt0, visits, counts):
         if t is not None and t.device != rays.device:
             raise ValueError(f"{who}: tensors on different devices")
+    check_mxu_form(trisW)
     out = torch.empty_like(prev)
+    ctas, groups, passes = sweep_layout(B)
+    if counts is not None and passes > 1:
+        raise ValueError(f"{who}: vote counts need a ray block taken in one "
+                         "pass")
+    state = _scratch(rays, passes)
+    order = torch.argsort(nact, descending=True, stable=True).to(torch.int32)
     lib = build.load("cluster_sweep_mxu")
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     rc = lib.wc_cluster_sweep_mxu(
-        nact.data_ptr(), clist.data_ptr(), bt0.data_ptr(), rays.data_ptr(),
-        prev.data_ptr(), trisW.data_ptr(), mat_tbl.data_ptr(), out.data_ptr(),
-        visits.data_ptr() if visits is not None else None,
-        RB, B, C, stream)
+        nact.data_ptr(), clist.data_ptr(), bt0.data_ptr(), order.data_ptr(),
+        rays.data_ptr(), prev.data_ptr(), trisW.data_ptr(), mat_tbl.data_ptr(),
+        out.data_ptr(), _ptr(visits), _ptr(state), _ptr(counts), RB, B, C,
+        ctas, groups, passes, stream)
     if rc != 0:
         raise RuntimeError("cluster_sweep_mxu kernel launch failed: "
                            + lib.wc_cuda_error_string(rc).decode())

@@ -99,10 +99,25 @@ def bunny_gltf_scene(max_blas_tris=None, device=None):
     return b.build(dev), _bunny_camera(dev)
 
 
+def _query(o, d, t_init, coords, mat, live, clusters, variant, dev):
+    """(origin, direction, t_init) + the cluster tables of ``variant``: "mt"
+    (tris, cmin, cmax) or "mxu" (trisW, cmin, cmax, mat_tbl)."""
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    make = {"mt": cluster.tables_from_coords,
+            "mxu": cluster.mxu_tables_from_coords}[variant]
+    tables = make(*(f32(x) for x in coords), f32(mat),
+                  torch.tensor(live, device=dev), clusters)
+    return (f32(o), f32(d), f32(t_init)) + tables
+
+
 def tie_heavy_query(n_rays: int = 4096, clusters: int = 12, seed: int = 0,
-                    device=None):
-    """A seeded closest-hit query built to tie -> (origin, direction, t_init,
-    tris, cmin, cmax) for ``kernels.cluster.cluster_sweep``.
+                    device=None, variant: str = "mt"):
+    """A seeded closest-hit query built to tie -> (origin, direction, t_init)
+    + the tables of ``variant`` ("mt": tris, cmin, cmax; "mxu": trisW, cmin,
+    cmax, mat_tbl, built from the same coordinates) for
+    ``kernels.cluster.cluster_sweep``.
 
     48 base triangles (tilted quads' halves facing +z), rising in x and z, fill
     ``clusters`` clusters of 128 slots: each cluster draws from a window of
@@ -142,14 +157,50 @@ def tie_heavy_query(n_rays: int = 4096, clusters: int = 12, seed: int = 0,
     t_init = np.full(n_rays, cluster.KINF)
     q = n_rays // 4
     t_init[:q] = r.integers(24, 33, q) / 8.0
+    return _query(o, d, t_init, coords, mat, live, clusters, variant, dev)
 
-    def f32(x):
-        return torch.tensor(x, dtype=torch.float32, device=dev)
 
-    tables = cluster.tables_from_coords(*(f32(x) for x in coords), f32(mat),
-                                        torch.tensor(live, device=dev),
-                                        clusters)
-    return (f32(o), f32(d), f32(t_init)) + tables
+def signed_zero_query(n_rays: int = 4096, clusters: int = 8, seed: int = 0,
+                      device=None, variant: str = "mxu"):
+    """A seeded closest-hit query whose tests pass through exact zeros ->
+    (origin, direction, t_init) + the tables of ``variant`` (as
+    ``tie_heavy_query``).
+
+    Every triangle is a right triangle in an axis plane (x, y or z = c),
+    its legs along the other two axes, with vertices on a 1/8 grid and
+    legs of +-1/4, 1/2 or 1 (so normals of both signs); the plane-form
+    fields n, d0, au, bu, av, bv are then dyadic and mostly zero.  Ray
+    origins lie on a 1/16 grid, so many lie in a triangle's plane (P = 0),
+    and each direction has one component +-1 and the others drawn from
+    {0, 0, +-1/4, +-1/2}, so rays run parallel to planes (Q = 0) and along
+    the u and v axes (Bu or Bv = 0); hits on edges give u, v or u + v of
+    exactly 0 or 1, and coplanar copies give exact t-ties.  Origins are
+    sorted so ray blocks are coherent; the first quarter of the rays get a
+    finite search bound.  The last cluster's last 16 slots are dead.
+    """
+    dev = resolve_device(device)
+    r = np.random.default_rng(seed)
+    T = clusters * cluster.CLUSTER_TRIS
+    axis = r.integers(0, 3, T)
+    a = r.integers(-8, 9, (T, 3)) / 8.0
+    legs = r.choice([-1.0, -0.5, -0.25, 0.25, 0.5, 1.0], (T, 2))
+    eye = np.eye(3)
+    e_u, e_v = eye[(axis + 1) % 3], eye[(axis + 2) % 3]
+    b = a + legs[:, :1] * e_u
+    c = a + legs[:, 1:] * e_v
+    live = np.ones(T, bool)
+    live[-16:] = False
+    coords = [np.where(live[:, None], x, 0.0) for x in (a, b, c)]
+    mat = np.arange(T) % 89
+    o = r.integers(-24, 25, (n_rays, 3)) / 16.0
+    o = o[np.lexsort((o[:, 2], o[:, 1], o[:, 0]))]       # coherent ray blocks
+    d = r.choice([0.0, 0.0, -0.25, 0.25, -0.5, 0.5], (n_rays, 3))
+    main = r.integers(0, 3, n_rays)
+    d[np.arange(n_rays), main] = r.choice([-1.0, 1.0], n_rays)
+    t_init = np.full(n_rays, cluster.KINF)
+    q = n_rays // 4
+    t_init[:q] = r.integers(4, 17, q) / 8.0
+    return _query(o, d, t_init, coords, mat, live, clusters, variant, dev)
 
 
 def bunny_like_scene(subdivisions: int = 5, max_blas_tris=None, device=None):
