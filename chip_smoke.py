@@ -23,6 +23,13 @@ wrapper's thread layout and under every layout each is timed in; per query
 they print the active clusters and visits per ray block and the long pole
 (the heaviest block launched alone), and the plane form the share of
 (warp, slot step) pairs that pass each of its two warp votes.
+The BVH walk must equal its twin bit for bit (t, offset and the per-ray
+counters) on its frame's five queries, on the unsplit bunny and on seeded
+tie-heavy and signed-zero banks, under every build it is timed in, walking
+every lane and only the transport's live lanes; its frame walking live
+lanes only must equal the frame walking every lane.  Per query it prints
+the time walking every lane and the live lanes only, the bound, the nodes
+and triangles each ray visits, and the time of each build.
 It also renders the 1024 x 1024 Cornell box through the brute-force path
 and the plain "wavefront" BVH walks at 64 x 64, checks the images, and
 prints times beside the card's name and power limit.  The last two lines of
@@ -34,6 +41,7 @@ outside the repository (the port's package must be importable).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -314,73 +322,199 @@ def mean_entry(per_query):
                 bound_ms=ms_b, bound_by=max(set(by), key=by.count))
 
 
-def pallas_phase(smi, cfg):
-    """The "pallas" path: capture, parity, serving, times.  Returns the
+def walk_layouts():
+    """The B3 builds timed against each other: {name: traversal.WalkLayout};
+    "grid local" (one thread per ray in blockIdx order, the stack in local
+    memory) is the baseline, the shipped layout one of the others."""
+    base = traversal.walk_layout()
+    out = {f"{sched} {'smem' if shared else 'local'}": traversal.WalkLayout(
+        schedule=sched, shared_stack=shared)
+        for sched in traversal.SCHEDULES for shared in (False, True)}
+    out.update({"top 6": dataclasses.replace(base, top_levels=6),
+                "top 8": dataclasses.replace(base, top_levels=8),
+                "reorder": dataclasses.replace(base, reorder=True)})
+    return out
+
+
+def walk_expected(twin, t0, alive):
+    """The twin's (t, off, counts) over every lane, as a walk of only the
+    lanes of ``alive`` must give them (dead lanes: t_init, -1, 0)."""
+    tp, op, cp = twin
+    if alive is None:
+        return tp, op, cp
+    return (torch.where(alive, tp, t0), torch.where(alive, op, -1),
+            torch.where(alive[:, None], cp, 0))
+
+
+def walk_same(query, mesh, twin, layouts):
+    """B3 against its twin, bitwise in t, off and the counters, on every
+    lane and on the live lanes only, under each layout of ``layouts``
+    ({name: WalkLayout}) -> {name: bool}."""
+    o, d, t0, alive = query
+    chosen, out = traversal.walk_layout, {}
+    try:
+        for name, lay in layouts.items():
+            traversal.walk_layout = lambda lay=lay: lay
+            same = True
+            for mask in (None, alive):
+                ck = torch.full_like(twin[2], 7)
+                tk, ok = traversal.bvh_walk_kernel(o, d, t0, mesh, ck,
+                                                   alive=mask)
+                torch.cuda.synchronize()
+                want = walk_expected(twin, t0, mask)
+                same = same and all(torch.equal(a, b) for a, b in
+                                    zip((tk, ok, ck), want))
+            out[name] = same
+    finally:
+        traversal.walk_layout = chosen
+    return out
+
+
+def walk_twin(query, mesh):
+    """The twin over every lane -> ((t, off, counts), device ms of the one
+    run, CUDA events)."""
+    o, d, t0, _ = query
+    counts = torch.zeros((o.shape[0], traversal.COUNT_COLS),
+                         dtype=torch.int32, device="cuda")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    tp, op = traversal.bvh_walk_plain(o, d, t0, mesh, counts)
+    end.record()
+    torch.cuda.synchronize()
+    return (tp, op, counts), start.elapsed_time(end)
+
+
+def pallas_phase(smi, cfg, unsplit, ptxas):
+    """The "pallas" path: the kernel's tables, capture (with the transport's
+    alive masks), parity under every layout with and without the masks (the
+    five queries, the unsplit bunny ``unsplit``, seeded tie-heavy and
+    signed-zero banks), times per layout, serving, frames.  Returns the
     kernel's JSON entry and the split scene."""
     scene, cam = bunny_gltf_scene(max_blas_tris=8192, device="cuda")
     mats = camera_matrices(cam, 1.0)
-    nd = int(scene.mesh.draw_count)
+    m = scene.mesh
+    nd = int(m.draw_count)
     check(nd >= 3, f"the split bunny has {nd} draws (>= 3)")
+    tables, tables_s = sync_time(lambda: traversal.walk_tables(m))
+    print(f"[pallas] walk tables: {tables.nodes.shape[0]} node records, "
+          f"{tables.tris.shape[0]} triangle records, {nd} draw records, "
+          f"built in {tables.build_s * 1e3:.1f} ms (first walk of the bank), "
+          f"on {smi}", flush=True)
     frame_fn = dispatch.get_render_frame("pallas", scene, cfg)
     check(frame_fn is wavefront.render_frame_pallas,
           "dispatch 'pallas' picks the BVH-walk kernel path")
     queries = []
 
-    def capture(o, d, t_init, mesh):
-        queries.append([x.clone() for x in (o, d, t_init)])
-        return traversal.bvh_walk_kernel(o, d, t_init, mesh)
+    def capture(o, d, t_init, mesh, alive=None):
+        queries.append([x.clone() for x in (o, d, t_init, alive)])
+        return traversal.bvh_walk_kernel(o, d, t_init, mesh, alive=alive)
 
     with torch.no_grad():
         golden.render_frame(scene, mats, cfg, 0, intersect_fn=wavefront
                             .make_intersect_fn_pallas(scene, capture))
     check(len(queries) == cfg.max_bounces + 1,
-          f"one frame makes {cfg.max_bounces + 1} BVH-walk queries")
+          f"one frame makes {cfg.max_bounces + 1} BVH-walk queries, each "
+          "with the transport's alive mask")
     R = queries[0][0].shape[0]
-    print(f"[pallas] {nd} draws, {scene.mesh.bvh_left.shape[0]} node slots, "
-          f"tree depth {traversal.tree_depth(scene.mesh)}, {R} rays per "
-          "query", flush=True)
+    layouts = walk_layouts()
+    print(f"[pallas] {nd} draws, {m.bvh_left.shape[0]} node slots, tree "
+          f"depth {tables.depth}, {R} rays per query; layout "
+          f"{traversal.walk_layout()}", flush=True)
 
-    parity, per_query = [], []
-    for q, (o, d, t0) in enumerate(queries):
-        ck = torch.zeros((R, traversal.COUNT_COLS), dtype=torch.int32,
-                         device="cuda")
-        cp = torch.zeros_like(ck)
-        tk, ok = traversal.bvh_walk_kernel(o, d, t0, scene.mesh, ck)
-        tp, op = traversal.bvh_walk_plain(o, d, t0, scene.mesh, cp)
+    parity, per_query, layouts_same = [], [], True
+    for q, query in enumerate(queries):
+        o, d, t0, alive = query
+        twin, plain = walk_twin(query, m)
+        tp, op, cp = twin
+        ck = torch.zeros_like(cp)
+        tk, ok = traversal.bvh_walk_kernel(o, d, t0, m, ck)
         torch.cuda.synchronize()
-        same = ok == op
+        same = walk_same(query, m, twin, layouts)
+        layouts_same = layouts_same and all(same.values())
+        live = int(alive.sum())
         rec = dict(query=q, bitwise=bool(torch.equal(tk, tp)
                                          and torch.equal(ok, op)),
-                   offsets_equal=float(same.float().mean()),
-                   t_equal_where_offsets_equal=bool(torch.equal(tk[same],
-                                                                tp[same])),
-                   max_abs_err=float((tk - tp).abs().max()),
                    counts_equal=bool(torch.equal(ck, cp)),
-                   hits=int((op >= 0).sum()))
+                   max_abs_err=float((tk - tp).abs().max()),
+                   bitwise_every_layout_with_and_without_mask=same,
+                   hits=int((op >= 0).sum()), live=live)
         parity.append(rec)
         print(f"[parity] pallas query {q}: {json.dumps(rec)}", flush=True)
-        check(rec["offsets_equal"] >= 0.9999
-              and rec["t_equal_where_offsets_equal"],
-              f"pallas query {q}: offsets equal on >= 99.99% of rays, t "
-              "equal where they are")
-        pops, inner, tests = (int(x) for x in ck.long().sum(0))
+        check(rec["bitwise"] and rec["counts_equal"] and all(same.values()),
+              f"pallas query {q}: t, off and counters equal the twin's bit "
+              "for bit under every layout, on every lane and on the "
+              f"{live} live lanes")
+        pops, inner, tests = (int(x) for x in cp.long().sum(0))
         ops = (R * nd * OPS_PER_SLAB + pops * OPS_PER_POP
                + inner * OPS_PER_INNER + tests * OPS_PER_TEST)
-        m = scene.mesh
         nb = nbytes(o, d, t0, tk, ok, m.bvh_min, m.bvh_max, m.bvh_left,
                     m.bvh_count, m.indices, m.vertices)
         bound_ms, bound_by = bound(ops, nb)
         ms = event_ms(lambda: traversal.bvh_walk_kernel(o, d, t0, m), 20)
-        plain = event_ms(lambda: traversal.bvh_walk_plain(o, d, t0, m), 1)
-        per_query.append(dict(query=q, ms=ms, plain_ms=plain,
+        ms_live = event_ms(lambda: traversal.bvh_walk_kernel(
+            o, d, t0, m, alive=alive), 20)
+        chosen, lay_ms = traversal.walk_layout, {}
+        try:
+            for name, lay in layouts.items():
+                traversal.walk_layout = lambda lay=lay: lay
+                lay_ms[name] = event_ms(
+                    lambda: traversal.bvh_walk_kernel(o, d, t0, m), 20)
+        finally:
+            traversal.walk_layout = chosen
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        for _ in range(20):
+            traversal.bvh_walk_kernel(o, d, t0, m)
+        host_ms = (time.perf_counter() - t_host) / 20 * 1e3
+        torch.cuda.synchronize()
+        per_query.append(dict(query=q, ms=ms, ms_live=ms_live, plain_ms=plain,
                               bound_ms=bound_ms, bound_by=bound_by,
                               nodes_popped=pops, inner_entered=inner,
-                              tris_tested=tests, bytes=nb))
-        print(f"[kernel] bvh_walk query {q}: {ms:.3f} ms (plain "
-              f"{plain:.1f} ms), bound {bound_ms:.4f} ms ({bound_by}); "
-              f"{pops / R:.1f} nodes popped, {inner / R:.1f} inner entered, "
-              f"{tests / R:.1f} triangles tested per ray, on {smi}",
+                              tris_tested=tests, bytes=nb, live_share=live / R,
+                              layouts_ms=lay_ms, host_enqueue_ms=host_ms))
+        print(f"[kernel] bvh_walk query {q}: {ms:.4f} ms all lanes, "
+              f"{ms_live:.4f} ms live lanes only ({live / R:.4f} live), "
+              f"plain {plain:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{ms / bound_ms:.1f}x; {pops / R:.2f} nodes popped, "
+              f"{inner / R:.2f} inner entered, {tests / R:.2f} triangles "
+              f"tested per ray; host enqueue {host_ms:.4f} ms per call, on "
+              f"{smi}", flush=True)
+        print(f"[layouts] bvh_walk query {q}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in lay_ms.items()) + f", on {smi}",
+            flush=True)
+    check(layouts_same, "every B3 layout gives the twin's t, off and "
+          "counters on every query, with and without the alive mask")
+    means = {k: sum(r["layouts_ms"][k] for r in per_query) / len(per_query)
+             for k in layouts}
+    print("[layouts] bvh_walk mean: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in means.items()) + f", on {smi}",
+        flush=True)
+
+    # the same gate on the unsplit bunny (one draw) and on seeded banks
+    # built to tie and to pass exact zeros through the slab test
+    extra = {}
+    gen = torch.Generator().manual_seed(9)
+    cases = [(f"unsplit bunny query {q}", queries[q], unsplit.mesh)
+             for q in (0, 1)]
+    for label, make, seed in (("tie-heavy", tie_heavy_query, 7),
+                              ("signed-zero", signed_zero_query, 11)):
+        o, d, t0, mesh = make(65536, 32, seed=seed, device="cuda",
+                              variant="bank")
+        alive = (torch.rand(65536, generator=gen) < 0.7).cuda()
+        cases.append((label, (o, d, t0, alive), mesh))
+    for label, query, mesh in cases:
+        twin, _ = walk_twin(query, mesh)
+        same = walk_same(query, mesh, twin, layouts)
+        extra[label] = dict(bitwise_every_layout_with_and_without_mask=same,
+                            hits=int((twin[1] >= 0).sum()),
+                            rays=query[0].shape[0],
+                            live=int(query[3].sum()),
+                            tree_depth=traversal.walk_tables(mesh).depth)
+        print(f"[parity] pallas {label}: {json.dumps(extra[label])}",
               flush=True)
+        check(all(same.values()), f"pallas {label}: t, off and counters "
+              "equal the twin's bit for bit under every layout, with and "
+              "without the alive mask")
 
     traversal.bvh_walk_kernel.launches = 0
     image, frame_ms, peak = serve(scene, mats, cfg, frame_fn)
@@ -393,9 +527,16 @@ def pallas_phase(smi, cfg):
           f"{segments / (frame_ms / 1e3) / 1e6:.2f} Mrays/s, peak "
           f"{peak:.2f} GiB, on {smi}", flush=True)
 
+    def every_lane(scene, origin, direction, cfg):
+        return wavefront.intersect_scene_pallas(scene, origin, direction, cfg)
+
     with torch.no_grad():
         a = wavefront.render_frame_pallas(scene, mats, cfg, 5)
+        full = golden.render_frame(scene, mats, cfg, 5,
+                                   intersect_fn=every_lane)
         b = sweep.render_frame(scene, mats, cfg, 5)
+    check(torch.equal(a, full), "the 'pallas' frame walking live lanes only "
+          "equals the frame walking every lane, bit for bit")
     agree = image_agreement(a, b, 1e-3)
     check(agree >= 0.99, f"the 'pallas' frame matches the sweep frame to "
           f"1e-3 on {agree:.4f} of pixels (>= 0.99)")
@@ -424,8 +565,13 @@ def pallas_phase(smi, cfg):
         max_abs_err=max(r["max_abs_err"] for r in parity),
         **mean_entry(per_query),
         library_ms=None,
-        ms_note="mean per launch over one 512^2 'pallas' frame's 5 queries",
-        parity=parity, per_query=per_query, card=smi,
+        ms_note="mean per launch over one 512^2 'pallas' frame's 5 queries, "
+                "every lane walked",
+        ms_live=sum(r["ms_live"] for r in per_query) / len(per_query),
+        layout=dataclasses.asdict(traversal.walk_layout()),
+        layouts_mean_ms=means, tables_build_s=tables.build_s,
+        tables_first_walk_s=tables_s, ptxas=ptxas,
+        parity=parity, parity_extra=extra, per_query=per_query, card=smi,
         frame_ms=frame_ms,
         mrays_s=segments / (frame_ms / 1e3) / 1e6, peak_gib=peak,
         wavefront_64_ms={w: t * 1e3 for w, (_, t) in walks.items()},
@@ -598,7 +744,7 @@ def main() -> int:
           flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     for name in build.SIGNATURES:
         build.load(name)
@@ -732,7 +878,10 @@ def main() -> int:
           f"peak {cpeak:.2f} GiB, on {smi}", flush=True)
 
     # -- 6. the "pallas" path: the split bunny through the BVH walk ---------
-    b3, split_scene = pallas_phase(smi, cfg)
+    b3, split_scene = pallas_phase(
+        smi, cfg, scene, [line.strip() for line in logs.get(
+            "bvh_walk", "").splitlines()
+            if "ptxas" in line or "spill" in line])
 
     # -- 7. the plane-form sweep: cluster_kernel="mxu" ----------------------
     b2 = mxu_phase(smi, scene, mats, cfg)

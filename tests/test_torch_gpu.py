@@ -8,6 +8,7 @@ without the repository's conftest:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -15,7 +16,8 @@ import torch
 
 from wc_path_tracer_tpu_torch import RenderConfig
 from wc_path_tracer_tpu_torch.kernels import cluster, traversal
-from wc_path_tracer_tpu_torch.models.procedural import (bunny_like_scene,
+from wc_path_tracer_tpu_torch.models.procedural import (bunny_gltf_scene,
+                                                         bunny_like_scene,
                                                          signed_zero_query,
                                                          tie_heavy_query)
 from wc_path_tracer_tpu_torch.render import golden, sweep, wavefront
@@ -293,6 +295,98 @@ def test_bvh_walk_wrapper_rejects_bad_inputs():
         traversal.bvh_walk_kernel(o, d, t0, cyclic)
 
 
+# every build of the B3 layout table (PERF.md): one thread per ray in
+# blockIdx order or persistent warps (32-ray batches, or lanes refilled as
+# they idle), the stack in local or shared memory, the top 6 or 8 levels
+# staged in shared memory, rays reordered
+WALK_LAYOUTS = [
+    traversal.WalkLayout(schedule=sched, shared_stack=shared)
+    for sched in traversal.SCHEDULES for shared in (False, True)] + [
+    traversal.WalkLayout(top_levels=6),
+    traversal.WalkLayout(top_levels=8),
+    traversal.WalkLayout(reorder=True),
+]
+
+
+def _layout_id(lay):
+    return (lay.schedule + ("-smem" if lay.shared_stack else "-local")
+            + (f"-top{lay.top_levels}" if lay.top_levels else "")
+            + ("-reorder" if lay.reorder else ""))
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_case(case):
+    """(mesh, [(origin, direction, t_init, alive)], [twin (t, off, counts)
+    of each query over every lane]).  The bunnies' queries are a 64 x 64
+    'pallas' frame's three, captured with the transport's alive masks;
+    the tie-heavy and signed-zero banks get a seeded mask."""
+    if case.endswith("bunny"):
+        scene, cam = bunny_gltf_scene(
+            max_blas_tris=8192 if case == "split bunny" else None,
+            device="cuda")
+        mesh, queries = scene.mesh, []
+
+        def capture(o, d, t0, mesh, alive=None):
+            queries.append((o.clone(), d.clone(), t0.clone(), alive.clone()))
+            return traversal.bvh_walk_plain(o, d, t0, mesh, alive=alive)
+
+        golden.render_frame(
+            scene, camera_matrices(cam, 1.0),
+            RenderConfig(width=64, height=64, max_bounces=2), 0,
+            intersect_fn=wavefront.make_intersect_fn_pallas(scene, capture))
+    else:
+        make = tie_heavy_query if case == "tie-heavy" else signed_zero_query
+        o, d, t0, mesh = make(8192, 8, seed=5, device="cuda", variant="bank")
+        alive = torch.from_numpy(np.random.default_rng(6).random(8192) < 0.7)
+        queries = [(o, d, t0, alive.cuda())]
+    twins = []
+    for o, d, t0, _ in queries:
+        counts = torch.zeros((o.shape[0], traversal.COUNT_COLS),
+                             dtype=torch.int32, device="cuda")
+        twins.append(traversal.bvh_walk_plain(o, d, t0, mesh, counts)
+                     + (counts,))
+    return mesh, queries, twins
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", WALK_LAYOUTS, ids=_layout_id)
+@pytest.mark.parametrize("case", ["split bunny", "unsplit bunny",
+                                  "tie-heavy", "signed-zero"])
+def test_bvh_walk_layouts_match_plain_walk(case, layout, monkeypatch):
+    """Every build the kernel is timed in, on every lane and on the live
+    lanes only: (t, off) and the counters equal the twin's bit for bit; a
+    dead lane gives (t_init, -1) and zero counters."""
+    _need_card()
+    mesh, queries, twins = _walk_case(case)
+    monkeypatch.setattr(traversal, "walk_layout", lambda: layout)
+    hits = 0
+    for (o, d, t0, alive), (tp, op, cp) in zip(queries, twins):
+        for mask in (None, alive):
+            ck = torch.full_like(cp, 7)
+            before = traversal.bvh_walk_kernel.launches
+            tk, ok = traversal.bvh_walk_kernel(o, d, t0, mesh, ck, alive=mask)
+            torch.cuda.synchronize()
+            assert traversal.bvh_walk_kernel.launches == before + 1
+            live = torch.ones_like(alive) if mask is None else mask
+            assert torch.equal(tk, torch.where(live, tp, t0))
+            assert torch.equal(ok, torch.where(live, op, -1))
+            assert torch.equal(ck, torch.where(live[:, None], cp, 0))
+        hits += int((op >= 0).sum())
+    assert hits > 1000
+
+
+@pytest.mark.gpu
+def test_walk_tables_on_the_card_equal_the_cpu_tables():
+    """The packing on the card gives the CPU's records bit for bit."""
+    _need_card()
+    scene, _ = bunny_like_scene(3, max_blas_tris=256, device="cuda")
+    got = traversal.walk_tables(scene.mesh)
+    want = traversal.walk_tables(scene.mesh.to("cpu"))
+    for name in ("nodes", "tris", "draws"):
+        assert torch.equal(getattr(got, name).cpu().view(torch.int32),
+                           getattr(want, name).view(torch.int32)), name
+
+
 @pytest.mark.gpu
 def test_pallas_frame_kernel_equals_plain_walk():
     _need_card()
@@ -307,3 +401,22 @@ def test_pallas_frame_kernel_equals_plain_walk():
                                    2)
     assert torch.isfinite(img_k).all()
     assert torch.equal(img_k, img_p) and torch.equal(img_k, img_w)
+
+
+@pytest.mark.gpu
+def test_pallas_frame_alive_mask_keeps_the_image():
+    """Walking only live lanes leaves the frame bit for bit unchanged."""
+    _need_card()
+    scene, cam = bunny_like_scene(3, max_blas_tris=256, device="cuda")
+    mats = camera_matrices(cam, 1.0)
+    cfg = RenderConfig(width=64, height=64, max_bounces=3)
+
+    def every_lane(scene, origin, direction, cfg):
+        return wavefront.intersect_scene_pallas(scene, origin, direction, cfg)
+
+    before = traversal.bvh_walk_kernel.launches
+    img_m = wavefront.render_frame_pallas(scene, mats, cfg, 2)
+    img_a = golden.render_frame(scene, mats, cfg, 2, intersect_fn=every_lane)
+    assert traversal.bvh_walk_kernel.launches == before + 8
+    assert torch.isfinite(img_m).all()
+    assert torch.equal(img_m, img_a)

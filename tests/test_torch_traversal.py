@@ -34,7 +34,7 @@ from wc_path_tracer_tpu.utils.config import RenderConfig as JConfig
 from wc_path_tracer_tpu_torch import RenderConfig
 from wc_path_tracer_tpu_torch.kernels import traversal
 from wc_path_tracer_tpu_torch.models import procedural
-from wc_path_tracer_tpu_torch.render import dispatch, wavefront
+from wc_path_tracer_tpu_torch.render import dispatch, golden, wavefront
 from wc_path_tracer_tpu_torch.scene import camera, types
 
 from test_render_bvh import random_rays, random_soup_scene
@@ -68,15 +68,26 @@ def _soup(n_tris, seed, n_spheres=0):
     return jscene, _port(jscene)
 
 
-@pytest.mark.parametrize("n_tris,seed", [(16, 0), (200, 2)])
-def test_stack_walk_matches_jax(n_tris, seed):
-    jscene, tscene = _soup(n_tris, seed)
+@functools.lru_cache(maxsize=None)
+def _jax_packet(n_tris, seed):
+    """The JAX packet kernel (interpret mode) on a soup's 1024 seeded rays
+    -> (o, d, t_init, t, off) as numpy."""
+    jscene, _ = _soup(n_tris, seed)
     o, d = random_rays(1024, seed + 7)
     t_init = jnp.full((1024,), KINF)
-    t_x, off_x = jwavefront._bvh_closest_tri(jscene, o, d, t_init)
     t_p, off_p = packet_bvh_intersect(o, d, t_init, _mesh_dict(jscene.mesh),
                                       max_leaf_tris=jscene.mesh.max_leaf_tris,
                                       interpret=True)
+    return tuple(np.asarray(x) for x in (o, d, t_init, t_p, off_p))
+
+
+@pytest.mark.parametrize("n_tris,seed", [(16, 0), (200, 2)])
+def test_stack_walk_matches_jax(n_tris, seed):
+    jscene, tscene = _soup(n_tris, seed)
+    o, d, t_init, t_p, off_p = _jax_packet(n_tris, seed)
+    t_x, off_x = jwavefront._bvh_closest_tri(jscene, jnp.asarray(o),
+                                             jnp.asarray(d),
+                                             jnp.asarray(t_init))
     counts = torch.zeros((1024, traversal.COUNT_COLS), dtype=torch.int32)
     t, off = traversal.bvh_walk_plain(_t(o), _t(d), _t(t_init), tscene.mesh,
                                       counts)
@@ -273,3 +284,201 @@ def test_stack_depth_check_runs_once_per_bank(monkeypatch):
     mesh.bvh_count = mesh.bvh_count.clone()
     traversal.check_stack_depth(mesh)
     assert len(calls) == 2
+
+
+# -- the kernel's tables and data path (walk_tables, bvh_walk_records_plain)
+
+def _bank(name):
+    """A mesh bank (CPU) by name: seeded soups, the split bunny-like scene
+    (3+ draws), two one-triangle draws, the seeded tie-heavy and
+    signed-zero banks -> (mesh, origin, direction, t_init)."""
+    if name.startswith("soup"):
+        n_tris, seed = {"soup16": (16, 0), "soup200": (200, 2)}[name]
+        o, d, t_init, _, _ = _jax_packet(n_tris, seed)
+        return _soup(n_tris, seed)[1].mesh, _t(o), _t(d), _t(t_init)
+    if name == "split bunny":
+        mesh = _bunny_split()[2].mesh
+        o, d = (_t(x) for x in random_rays(1024, 31))
+        o = o + torch.tensor([0.0, 1.0, 4.0])
+        return mesh, o, d, torch.full((1024,), float(KINF))
+    if name == "two draws":
+        b = types.SceneBuilder()
+        for z in (-2.0, -4.0):
+            b.add_mesh(np.array([[-1, -1, z], [1, -1, z], [0, 1, z]],
+                                np.float32), np.array([0, 1, 2], np.int32))
+        o = np.zeros((64, 3), np.float32)
+        o[32:, 2] = -3.0
+        d = np.tile(np.array([[0.0, 0.0, -1.0]], np.float32), (64, 1))
+        return (b.build("cpu").mesh, _t(o), _t(d),
+                torch.full((64,), float(KINF)))
+    make = (procedural.tie_heavy_query if name == "tie-heavy"
+            else procedural.signed_zero_query)
+    o, d, t_init, mesh = make(2048, 4, seed=3, device="cpu", variant="bank")
+    return mesh, o, d, t_init
+
+
+BANKS = ["soup16", "soup200", "split bunny", "two draws", "tie-heavy",
+         "signed-zero"]
+
+
+@pytest.mark.parametrize("name", BANKS)
+def test_walk_tables_are_exact(name):
+    """Every record, followed from its draw's root as the kernel follows
+    it, holds its node's boxes and vertices bit for bit; inner references
+    map back to their nodes (each record reached once), leaf references
+    (-2 - first index) to the leaf's first index and count."""
+    mesh = _bank(name)[0]
+    tables = traversal.walk_tables(mesh)
+    assert traversal.walk_tables(mesh) is tables       # packed once
+    f32 = (lambda x: x.numpy().view(np.int32))
+    nodes, tris, draws = (f32(x) for x in (tables.nodes, tables.tris,
+                                           tables.draws))
+    bmin, bmax, verts = (f32(x) for x in (mesh.bvh_min, mesh.bvh_max,
+                                          mesh.vertices))
+    left, count, indices = (x.numpy() for x in (mesh.bvh_left,
+                                                mesh.bvh_count, mesh.indices))
+    nd = int(mesh.draw_count)
+    assert draws.shape == (nd, traversal.DRAW_COLS)
+    assert nodes.shape[1] == traversal.NODE_COLS
+    reached = []
+
+    def check(node, node_off, index_off, vert_off, ref, cnt):
+        assert cnt == count[node]
+        if cnt == 0:
+            reached.append(ref)
+            rec = nodes[ref]
+            lc = node_off + left[node]
+            for j, c in enumerate((lc, lc + 1)):
+                np.testing.assert_array_equal(rec[6 * j:6 * j + 3], bmin[c])
+                np.testing.assert_array_equal(rec[6 * j + 3:6 * j + 6],
+                                              bmax[c])
+                check(c, node_off, index_off, vert_off, rec[12 + j],
+                      rec[14 + j])
+            return
+        i0 = -2 - ref
+        assert i0 == index_off + left[node] and i0 % 3 == 0
+        ntri = (cnt + 2) // 3
+        for k in range(ntri):
+            rec = tris[i0 // 3 + k]
+            assert rec[3] == ntri - k
+            for j in range(3):
+                np.testing.assert_array_equal(
+                    rec[4 * j:4 * j + 3],
+                    verts[vert_off + indices[i0 + 3 * k + j]])
+
+    for di in range(nd):
+        node_off, index_off, vert_off = (int(getattr(mesh, k)[di]) for k in (
+            "draw_node_offset", "draw_index_offset", "draw_vertex_offset"))
+        np.testing.assert_array_equal(draws[di, 0:3], bmin[node_off])
+        np.testing.assert_array_equal(draws[di, 3:6], bmax[node_off])
+        check(node_off, node_off, index_off, vert_off, draws[di, 6],
+              draws[di, 7])
+    assert sorted(reached) == list(range(nodes.shape[0]))
+    assert tables.depth == traversal.tree_depth(mesh)
+
+
+@pytest.mark.parametrize("name", BANKS)
+def test_record_walk_matches_plain_walk(name):
+    """The kernel's data path (carried t0, filtered pushes, triangle
+    records) in plain PyTorch equals the twin on t, off and the counters,
+    bit for bit; on the soups both equal the JAX packet kernel's offsets
+    (interpret mode)."""
+    mesh, o, d, t_init = _bank(name)
+    R = o.shape[0]
+    cp = torch.zeros((R, traversal.COUNT_COLS), dtype=torch.int32)
+    cr = torch.zeros_like(cp)
+    tp, op = traversal.bvh_walk_plain(o, d, t_init, mesh, cp)
+    tr, orr = traversal.bvh_walk_records_plain(o, d, t_init, mesh, cr)
+    assert torch.equal(tp, tr) and torch.equal(op, orr)
+    assert torch.equal(cp, cr)
+    assert int((op >= 0).sum()) > 10
+    # every node pushed is popped: the roots and two per inner node entered
+    nd = int(mesh.draw_count)
+    assert torch.equal(cp[:, 0], nd + 2 * cp[:, 1])
+    if name.startswith("soup"):
+        n_tris, seed = {"soup16": (16, 0), "soup200": (200, 2)}[name]
+        _, _, _, t_j, off_j = _jax_packet(n_tris, seed)
+        np.testing.assert_array_equal(orr.numpy(), off_j)
+        hit = off_j >= 0
+        np.testing.assert_allclose(tr.numpy()[hit], t_j[hit], rtol=1e-6)
+
+
+def test_walks_take_an_alive_mask():
+    """With a mask, the twin, the record walk and the wrapper walk only the
+    live lanes: equal to the unmasked walk there, (t_init, -1) and zero
+    counters elsewhere."""
+    mesh, o, d, t_init = _bank("soup200")
+    alive = torch.from_numpy(np.random.default_rng(4).random(1024) < 0.6)
+    cp = torch.zeros((1024, traversal.COUNT_COLS), dtype=torch.int32)
+    tp, op = traversal.bvh_walk_plain(o, d, t_init, mesh, cp)
+    for walk in (traversal.bvh_walk_plain, traversal.bvh_walk_records_plain,
+                 traversal.bvh_walk_kernel):
+        cm = torch.full_like(cp, 7)
+        tm, om = walk(o, d, t_init, mesh, cm, alive=alive)
+        assert torch.equal(tm, torch.where(alive, tp, t_init))
+        assert torch.equal(om, torch.where(alive, op, -1))
+        assert torch.equal(cm, torch.where(alive[:, None], cp, 0))
+
+
+def test_ray_order_sorts_by_octant_then_morton():
+    """The reordered layout's lane order: a permutation of the rays, sorted
+    by direction octant (the key's top bits), then by the Morton code of
+    the origin."""
+    _, o, d, _ = _bank("soup200")
+    order = traversal.ray_order(o, d)
+    assert order.dtype == torch.int32
+    assert torch.equal(order.sort().values, torch.arange(1024,
+                                                         dtype=torch.int32))
+    key = traversal.ray_order_key(o, d)[order.long()]
+    assert (key[1:] >= key[:-1]).all()
+    octant = (d[order.long()] < 0).long()
+    assert torch.equal(key >> 30, octant[:, 0] | octant[:, 1] << 1
+                       | octant[:, 2] << 2)
+    assert int(key.max() & ((1 << 30) - 1)) < 1 << 30
+
+
+def test_walk_tables_refuse_banks_they_cannot_pack():
+    """A leaf of more than 3 x max_leaf_tris indices, a leaf that does not
+    start on a triangle slot, a node reached twice and a cyclic table."""
+    mesh = _bank("soup200")[0]
+    count, left = mesh.bvh_count, mesh.bvh_left
+    leaf = int(torch.nonzero(count > 0)[0])
+    assert left[0] == 1 and count[1] == 0 and count[2] == 0
+    big = count.clone()
+    big[leaf] = 3 * mesh.max_leaf_tris + 3
+    off = left.clone()
+    off[leaf] += 1
+    shared = left.clone()
+    shared[2] = left[1]              # the root's children share theirs
+    cyclic = torch.zeros_like(left)
+    for kw, match in ((dict(bvh_count=big), "more than 3 x"),
+                      (dict(bvh_left=off), "triangle slot"),
+                      (dict(bvh_left=shared), "reached twice"),
+                      (dict(bvh_left=cyclic, bvh_count=torch.zeros_like(
+                          count)), "more than 64 levels")):
+        with pytest.raises(ValueError, match=match):
+            traversal.walk_tables(dataclasses.replace(mesh, **kw))
+
+
+def test_pallas_frame_alive_mask_keeps_the_image():
+    """The "pallas" frame walks only live lanes; bit for bit the frame of
+    a walk of every lane."""
+    _, _, tscene, tm = _bunny_split()
+    cfg = RenderConfig(**FRAME_CFG)
+    assert wavefront.intersect_scene_pallas.accepts_alive
+
+    def every_lane(scene, origin, direction, cfg):
+        return wavefront.intersect_scene_pallas(scene, origin, direction, cfg)
+
+    seen = []
+
+    def walk(o, d, t0, mesh, alive=None):
+        seen.append(int(alive.sum()))
+        return traversal.bvh_walk_plain(o, d, t0, mesh, alive=alive)
+
+    masked = wavefront.render_frame_pallas(tscene, tm, cfg, 1)
+    full = golden.render_frame(tscene, tm, cfg, 1, intersect_fn=every_lane)
+    golden.render_frame(tscene, tm, cfg, 1, intersect_fn=wavefront
+                        .make_intersect_fn_pallas(tscene, walk))
+    assert torch.equal(masked, full)
+    assert seen[0] == 32 * 32 and seen[-1] < seen[0]

@@ -44,10 +44,10 @@ SIGNATURES = {
         "wc_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "bvh_walk": {
-        # origin, direction, t_init, bvh_min, bvh_max, bvh_left, bvh_count,
-        # indices, vertices, draw node/index/vertex offsets, draw_count,
-        # t_out, off_out, counts, rays, draw capacity, max_leaf_tris, stream
-        "wc_bvh_walk": ([_P] * 16 + [_I] * 3 + [_P], _I),
+        # origin, direction, t_init, node / triangle / draw records, lanes,
+        # alive mask, lane counter, t_out, off_out, counts, rays, draws,
+        # stack slots, top levels, staged records, flags, stream
+        "wc_bvh_walk": ([_P] * 12 + [_I] * 6 + [_P], _I),
         "wc_cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -5,49 +5,113 @@
 // SMEM-sized chunk, by packet_bvh_intersect_chunked).  Same contract: per
 // ray the closest triangle hit over every draw's BVH, pruned by t_init, as
 // (t, first-index offset into mesh.indices or -1).  The plain PyTorch twin
-// is wc_path_tracer_tpu_torch/kernels/traversal.py::bvh_walk_plain.
+// is wc_path_tracer_tpu_torch/kernels/traversal.py::bvh_walk_plain; kernel
+// and twin agree bit for bit in (t, off) and in the per-ray counters.
 //
-// Layout: one thread per ray, each with its own 64-slot stack in local
-// memory.  The TPU kernel shared one scalar stack per 1024-ray packet and
-// descended wherever any lane entered, because a TPU lane has no stack; a
-// GPU thread has one, so this is the reference shader's per-thread walk
-// (pathTracer.comp:151-201): draws in order with t carried across them, pop,
-// slab test in ops/intersect.py::ray_box's order (NaN propagates through
-// min/max as in torch.minimum, so a 0 * inf lane never enters), enter iff
-// t0 <= t1 && t1 >= 0 && t0 <= t_best, leaf triangles in
-// ops/intersect.py::ray_triangle's order with a strict `<` update, and at
-// an inner node push the far child then the near one by t0 > 0 ? t0 : t1.
-// The scene tables (node boxes, indices, vertices) are read from global
-// memory through L2; one launch walks every draw, so the TPU's SMEM
-// chunking has no counterpart.
+// Order (the reference shader's per-thread walk, pathTracer.comp:151-201,
+// not the TPU's 1024-ray packet with one shared stack): draws in order with
+// t carried across them; a node is entered iff t0 <= t1 && t1 >= 0 &&
+// t0 <= t_best (slab test in ops/intersect.py::ray_box's order, NaN
+// propagating through min/max as in torch.minimum, so a 0 * inf lane never
+// enters); near child first by t0 > 0 ? t0 : t1; leaf triangles in
+// ops/intersect.py::ray_triangle's order with a strict `<` update.  Built
+// with -fmad=false so every product and sum is rounded separately, as in
+// the twin.
 //
-// Bound: operations at this size, counted as the walk needs them, not as
-// this loop issues them.  Per ray, each node reached needs one slab test
-// (6 subtractions, 6 multiplies, 10 min/max: 22 ops), computed for both
-// children at an entered inner node with the near-child choice (47 ops)
-// and for the roots once per draw; each pop adds 3 enter compares, each
-// leaf triangle one Moller-Trumbore test (54, counted as in
-// cluster_sweep.cu).  This loop recomputes each popped node's slab test,
-// which its parent already did.  The tables are a few MB and the rays move
-// 36 bytes each, below the operation time at 67 TFLOP/s FP32 (H100 SXM,
-// 700 W).
-// This first version is simple and right, not fast: divergent threads, no
-// ray sorting, no wide BVH, no packets.  Built with -fmad=false so every
-// product and sum is rounded separately, as in the PyTorch twin.
+// What bounds it.  Not the bytes or the operations (the bound, 0.0033 ms
+// on a 512^2 bunny frame's queries, is the bytes of the rays and tables):
+// each ray is a chain of dependent steps -- load a node, test, choose, load
+// the next -- and the time is the longest rays' chains (up to ~110 inner
+// nodes entered on that cell, ~10x the mean) stretched by divergence
+// inside their warps and by the other warps on their SM.  Measured on an
+// H100 (PERF.md, PR 5): one warp walking one ray in all 32 lanes takes 0.4
+// of the time of 32 different rays, and a ray order that breaks the pixel
+// order's coherence doubles it.  The first port spent ~470 scattered scalar
+// loads and local-stack accesses per primary ray: every box fetched and
+// tested twice (at its parent, to pick the near child, and at its own pop),
+// 6 scalar loads per box plus the node's left/count, two rounds of loads
+// per triangle (indices, then vertices).
+//
+// What this design does about it (traversal.walk_tables packs the bank
+// once, from bitwise copies of its boxes and vertices):
+// - Child-pair node records, 64 B = 4 float4 per inner node: both
+//   children's boxes, references as the walk carries them (record id, or
+//   -2 - the first index of a leaf) and index counts.  An entered inner
+//   node costs 4 independent 16-byte ld.global.nc loads (the counts are not
+//   read); a leaf child needs no fetch of its own.
+// - Carried entry distances: both children are tested once, from the
+//   parent's record; a child is pushed as (ref, t0) only if its interval is
+//   non-empty and not behind the ray, and a pop re-checks only
+//   t0 <= t_best: the twin's enter test, on the same floats.  A child not
+//   pushed still counts as popped, so the counters equal the twin's.  The
+//   near child is held in registers (the twin pushes it last and pops it
+//   next), so the stack holds only far children: at most depth - 1.
+// - Triangle records, 48 B = 3 float4 per slot (a, b, c, rebased by the
+//   draw's vertex offset; the first pad word holds how many triangles of
+//   the leaf remain), addressed by first index / 3: one round of 3 loads.
+// - NaN-propagating min/max in one instruction each (min.NaN, max.NaN),
+//   and the draw records in shared memory, so a step is ~75 instructions.
+// - While-while order (Aila & Laine, HPG 2009): a thread descends inner
+//   nodes until it holds a leaf or nothing, and only then tests triangles.
+//   Nothing is speculative: each ray's order is the twin's.
+// - Layouts (traversal.WalkLayout; PERF.md times each): one thread per ray
+//   in blockIdx order, or persistent warps (a few CTAs per SM) that take 32
+//   lanes at a time from a global counter with atomicAdd and either walk
+//   each batch to its end or, the default, refill a lane whose ray is done
+//   once a quarter of the warp is idle (Aila & Laine's dynamic fetch); the
+//   stack in local memory (the default; it leaves L1 to the records) or in
+//   shared memory (entry i of thread x at [i][x], conflict-free); each
+//   draw's top 6 or 8 levels of records staged per CTA with cp.async; rays
+//   in an order the wrapper gives (lanes).
+// - Live lanes only: with the transport's alive mask, a persistent warp
+//   queues the live lanes it takes in shared memory (ballot and popc) and
+//   walks only them; a dead lane gets (t_init, -1) and zero counters from
+//   the warp that took it.  No host sync, no pass before the launch.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kStack = 64;       // per-ray stack slots (host checks depth)
-constexpr int kCountCols = 3;    // nodes popped, inner entered, tris tested
+constexpr int kThreads = 128;     // threads per CTA (4 warps)
+constexpr int kLocalStack = 64;   // traversal.STACK_DEPTH
+constexpr int kCountCols = 3;     // nodes popped, inner entered, tris tested
+constexpr int kNone = -1;         // carried child: >= 0 record, <= -2 leaf
+constexpr int kSharedDraws = 32;  // draw records each CTA keeps in shared
 
-// torch.minimum / torch.maximum: NaN if either operand is NaN
+struct Params {
+  const float* origin;     // (R, 3)
+  const float* direction;  // (R, 3)
+  const float* t_init;     // (R,)
+  const float4* nodes;     // (NR, 4) child-pair records
+  const float4* tris;      // (T, 3) triangle records
+  const float4* draws;     // (D, 3) per-draw root records
+  const int* lanes;        // (R,) the order to take the rays in, or null
+  const bool* alive;       // (R,) rays to walk, or null (every ray)
+  int* counter;            // persistent: lanes taken so far (zeroed)
+  float* t_out;            // (R,)
+  int* off_out;            // (R,)
+  int* counts;             // (R, 3) or null
+  int num_rays, num_draws, stack_slots, top_levels, stage_records;
+};
+
+// The ray a schedule's i-th lane walks: the wrapper's order, if it gave one.
+__device__ __forceinline__ int ray_of(const Params& p, int i) {
+  return p.lanes != nullptr ? p.lanes[i] : i;
+}
+
+// torch.minimum / torch.maximum: NaN if either operand is NaN, in one
+// instruction (min.NaN / max.NaN, sm_80 and later)
 __device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fminf(a, b);
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 struct Box {
@@ -56,147 +120,469 @@ struct Box {
 
 // ops/intersect.py::ray_box: t0 = max over axes of min(top, bot),
 // t1 = min over axes of max(top, bot)
-__device__ __forceinline__ Box slab(const float* __restrict__ bmin,
-                                    const float* __restrict__ bmax, int node,
-                                    float ox, float oy, float oz, float ix,
-                                    float iy, float iz) {
-  const float* lo = bmin + 3 * static_cast<size_t>(node);
-  const float* hi = bmax + 3 * static_cast<size_t>(node);
-  const float bx = (lo[0] - ox) * ix, tx = (hi[0] - ox) * ix;
-  const float by = (lo[1] - oy) * iy, ty = (hi[1] - oy) * iy;
-  const float bz = (lo[2] - oz) * iz, tz = (hi[2] - oz) * iz;
+__device__ __forceinline__ Box slab(float lx, float ly, float lz, float hx,
+                                    float hy, float hz, float ox, float oy,
+                                    float oz, float ix, float iy, float iz) {
+  const float bx = (lx - ox) * ix, tx = (hx - ox) * ix;
+  const float by = (ly - oy) * iy, ty = (hy - oy) * iy;
+  const float bz = (lz - oz) * iz, tz = (hz - oz) * iz;
   Box b;
   b.t0 = nan_max(nan_max(nan_min(tx, bx), nan_min(ty, by)), nan_min(tz, bz));
   b.t1 = nan_min(nan_min(nan_max(tx, bx), nan_max(ty, by)), nan_max(tz, bz));
   return b;
 }
 
-__global__ void bvh_walk_kernel(
-    const float* __restrict__ origin,     // (R, 3)
-    const float* __restrict__ direction,  // (R, 3)
-    const float* __restrict__ t_init,     // (R,)
-    const float* __restrict__ bvh_min,    // (N, 3)
-    const float* __restrict__ bvh_max,    // (N, 3)
-    const int* __restrict__ bvh_left,     // (N,) left child / first index
-    const int* __restrict__ bvh_count,    // (N,) index count, 0 = inner
-    const int* __restrict__ indices,      // (I,) draw-relative vertex ids
-    const float* __restrict__ vertices,   // (V, 3)
-    const int* __restrict__ draw_node_off,
-    const int* __restrict__ draw_index_off,
-    const int* __restrict__ draw_vert_off,
-    const int* __restrict__ draw_count,   // () live draws
-    float* __restrict__ t_out,            // (R,)
-    int* __restrict__ off_out,            // (R,)
-    int* __restrict__ counts,             // (R, 3) or null
-    int num_rays, int draw_capacity, int max_leaf_tris) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= num_rays) return;
-  const float ox = origin[3 * r], oy = origin[3 * r + 1], oz = origin[3 * r + 2];
-  const float dx = direction[3 * r], dy = direction[3 * r + 1],
-              dz = direction[3 * r + 2];
-  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
-  float t_best = t_init[r];
-  int best = -1;
-  int popped = 0, entered = 0, tested = 0;
-  int stack[kStack];
+__device__ __forceinline__ bool nonempty_ahead(Box b) {
+  return (b.t0 <= b.t1) & (b.t1 >= 0.0f);
+}
 
-  const int nd = min(*draw_count, draw_capacity);
-  for (int di = 0; di < nd; ++di) {
-    const int node_off = draw_node_off[di];
-    const int index_off = draw_index_off[di];
-    const int vert_off = draw_vert_off[di];
-    stack[0] = node_off;
-    int ptr = 1;
-    while (ptr > 0) {
-      const int node = stack[--ptr];
-      ++popped;
-      const Box b = slab(bvh_min, bvh_max, node, ox, oy, oz, ix, iy, iz);
-      if (!((b.t0 <= b.t1) & (b.t1 >= 0.0f) & (b.t0 <= t_best))) continue;
-      const int count = bvh_count[node];
-      const int left = bvh_left[node];
-      if (count > 0) {
-        for (int k = 0; k < max_leaf_tris && 3 * k < count; ++k) {
-          ++tested;
-          const int i0 = index_off + left + 3 * k;
-          const float* a = vertices + 3 * static_cast<size_t>(vert_off + indices[i0]);
-          const float* pb = vertices + 3 * static_cast<size_t>(vert_off + indices[i0 + 1]);
-          const float* pc = vertices + 3 * static_cast<size_t>(vert_off + indices[i0 + 2]);
-          const float ax = a[0], ay = a[1], az = a[2];
-          const float e1x = pb[0] - ax, e1y = pb[1] - ay, e1z = pb[2] - az;
-          const float e2x = pc[0] - ax, e2y = pc[1] - ay, e2z = pc[2] - az;
-          const float oax = ox - ax, oay = oy - ay, oaz = oz - az;
-          // Moller-Trumbore, in ops/intersect.py::ray_triangle's order
-          const float px = dy * e2z - dz * e2y;
-          const float py = dz * e2x - dx * e2z;
-          const float pz = dx * e2y - dy * e2x;
-          const float inv_det = 1.0f / (e1x * px + e1y * py + e1z * pz);
-          const float qx = oay * e1z - oaz * e1y;
-          const float qy = oaz * e1x - oax * e1z;
-          const float qz = oax * e1y - oay * e1x;
-          const float u = (oax * px + oay * py + oaz * pz) * inv_det;
-          const float v = dx * (qx * inv_det) + dy * (qy * inv_det) + dz * (qz * inv_det);
-          const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-          const bool hit = (t > 0.0f) & (u >= 0.0f) & (u <= 1.0f) & (v >= 0.0f) &
-                           (u + v <= 1.0f);
-          if (hit && t < t_best) {
-            t_best = t;
-            best = i0;
-          }
-        }
+// (ref, t0) stacks: entry i of this thread
+struct SharedStack {
+  int2* col;  // this thread's column of the CTA's [slot][thread] array
+  __device__ __forceinline__ void put(int i, int2 v) { col[i * kThreads] = v; }
+  __device__ __forceinline__ int2 get(int i) const { return col[i * kThreads]; }
+};
+struct LocalStack {
+  int2 e[kLocalStack];
+  __device__ __forceinline__ void put(int i, int2 v) { e[i] = v; }
+  __device__ __forceinline__ int2 get(int i) const { return e[i]; }
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ int top_records(const Params& p, int di) {
+  const float4 d2 = __ldg(p.draws + 3 * di + 2);
+  return __float_as_int(p.top_levels == 6 ? d2.x : d2.y);
+}
+
+// One lane's walk of one ray, as state, so a schedule can interleave the
+// steps of different rays on a warp's lanes without changing any ray's
+// order: begin(), then next_draw() until it is false, each draw stepped by
+// inner() and leaf() until cur is kNone, then finish().
+template <bool kCount, bool kStage, class Stack>
+struct Walker {
+  const Params& p;
+  Stack& st;
+  const int cap;            // stack entries (the wrapper checks depth)
+  const float4* s_top;      // staged top records, if any
+  const float4* s_draws;    // the first kSharedDraws draw records
+  int r, best, popped, entered, tested;
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz, t_best;
+  int di, cur, sp, root, staged, stage_off, staged_before;
+
+  __device__ __forceinline__ void begin(int ray) {
+    r = ray;
+    ox = p.origin[3 * r];
+    oy = p.origin[3 * r + 1];
+    oz = p.origin[3 * r + 2];
+    dx = p.direction[3 * r];
+    dy = p.direction[3 * r + 1];
+    dz = p.direction[3 * r + 2];
+    ix = 1.0f / dx;
+    iy = 1.0f / dy;
+    iz = 1.0f / dz;
+    t_best = p.t_init[r];
+    best = -1;
+    popped = entered = tested = 0;
+    di = -1;
+    cur = kNone;
+    staged_before = 0;
+  }
+
+  // Pop the draws' roots in order until one is entered (cur >= 0 or a
+  // leaf); false when no draw is left.
+  __device__ __forceinline__ bool next_draw() {
+    while (++di < p.num_draws) {
+      float4 d0, d1;
+      if (di < kSharedDraws) {
+        d0 = s_draws[3 * di];
+        d1 = s_draws[3 * di + 1];
       } else {
-        ++entered;
-        const int lchild = node_off + left;
-        const int rchild = lchild + 1;
-        const Box lb = slab(bvh_min, bvh_max, lchild, ox, oy, oz, ix, iy, iz);
-        const Box rb = slab(bvh_min, bvh_max, rchild, ox, oy, oz, ix, iy, iz);
-        const float ldist = lb.t0 > 0.0f ? lb.t0 : lb.t1;
-        const float rdist = rb.t0 > 0.0f ? rb.t0 : rb.t1;
-        const bool near_left = ldist < rdist;
-        if (ptr <= kStack - 2) {  // always true: the wrapper refuses deeper trees
-          stack[ptr++] = near_left ? rchild : lchild;  // far: popped last
-          stack[ptr++] = near_left ? lchild : rchild;  // near: popped next
-        }
+        d0 = __ldg(p.draws + 3 * di);
+        d1 = __ldg(p.draws + 3 * di + 1);
+      }
+      root = __float_as_int(d1.z);
+      if (kStage) {
+        stage_off = staged_before;
+        staged = min(top_records(p, di), p.stage_records - staged_before);
+        staged_before += staged;
+      }
+      ++popped;
+      sp = 0;
+      const Box b = slab(d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, ox, oy, oz, ix,
+                         iy, iz);
+      if (nonempty_ahead(b) && b.t0 <= t_best) {
+        cur = root;
+        return true;
+      }
+    }
+    return false;
+  }
+
+  // the next stacked child still entered at the current t_best
+  __device__ __forceinline__ int pop() {
+    while (sp > 0) {
+      const int2 e = st.get(--sp);
+      if (__int_as_float(e.y) <= t_best) return e.x;
+    }
+    return kNone;
+  }
+
+  // Entered inner nodes, each from its one record, until cur is a leaf or
+  // kNone.
+  __device__ __forceinline__ void inner() {
+    while (cur >= 0) {
+      ++entered;
+      popped += 2;
+      float4 q0, q1, q2, q3;
+      const unsigned local = static_cast<unsigned>(cur - root);
+      if (kStage && local < static_cast<unsigned>(staged)) {
+        const float4* q = s_top + 4 * (stage_off + local);
+        q0 = q[0];
+        q1 = q[1];
+        q2 = q[2];
+        q3 = q[3];
+      } else {
+        const float4* q = p.nodes + 4 * static_cast<size_t>(cur);
+        q0 = __ldg(q);
+        q1 = __ldg(q + 1);
+        q2 = __ldg(q + 2);
+        q3 = __ldg(q + 3);
+      }
+      const Box lb = slab(q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, ox, oy, oz, ix,
+                          iy, iz);
+      const Box rb = slab(q1.z, q1.w, q2.x, q2.y, q2.z, q2.w, ox, oy, oz, ix,
+                          iy, iz);
+      // both children as the walk carries them (record id, or -2 - the
+      // first index of a leaf), packed so
+      const int lc = __float_as_int(q3.x), rc = __float_as_int(q3.y);
+      const float ldist = lb.t0 > 0.0f ? lb.t0 : lb.t1;
+      const float rdist = rb.t0 > 0.0f ? rb.t0 : rb.t1;
+      const bool near_left = ldist < rdist;
+      const int near = near_left ? lc : rc, far = near_left ? rc : lc;
+      const Box nb = near_left ? lb : rb, fb = near_left ? rb : lb;
+      // the twin pushes far then near and pops near next: near is entered
+      // at the t_best of now, far waits on the stack
+      if (nonempty_ahead(nb) && nb.t0 <= t_best) {
+        if (nonempty_ahead(fb) && sp < cap)  // always room: depth checked
+          st.put(sp++, make_int2(far, __float_as_int(fb.t0)));
+        cur = near;
+      } else if (nonempty_ahead(fb) && fb.t0 <= t_best) {
+        cur = far;
+      } else {
+        cur = pop();
       }
     }
   }
-  t_out[r] = t_best;
-  off_out[r] = best;
-  if (counts != nullptr) {
-    counts[kCountCols * r] = popped;
-    counts[kCountCols * r + 1] = entered;
-    counts[kCountCols * r + 2] = tested;
+
+  // The leaf cur: its triangles from the triangle records, in order; then
+  // the next stacked child.
+  __device__ __forceinline__ void leaf() {
+    const int i0 = -2 - cur;
+    const float4* tr = p.tris + 3 * static_cast<size_t>(i0 / 3);
+    int n = 1;
+    for (int k = 0; k < n; ++k) {
+      const float4 a = __ldg(tr + 3 * k);
+      const float4 b = __ldg(tr + 3 * k + 1);
+      const float4 c = __ldg(tr + 3 * k + 2);
+      if (k == 0) n = __float_as_int(a.w);
+      ++tested;
+      const float e1x = b.x - a.x, e1y = b.y - a.y, e1z = b.z - a.z;
+      const float e2x = c.x - a.x, e2y = c.y - a.y, e2z = c.z - a.z;
+      const float oax = ox - a.x, oay = oy - a.y, oaz = oz - a.z;
+      // Moller-Trumbore, in ops/intersect.py::ray_triangle's order
+      const float px = dy * e2z - dz * e2y;
+      const float py = dz * e2x - dx * e2z;
+      const float pz = dx * e2y - dy * e2x;
+      const float inv_det = 1.0f / (e1x * px + e1y * py + e1z * pz);
+      const float qx = oay * e1z - oaz * e1y;
+      const float qy = oaz * e1x - oax * e1z;
+      const float qz = oax * e1y - oay * e1x;
+      const float u = (oax * px + oay * py + oaz * pz) * inv_det;
+      const float v =
+          dx * (qx * inv_det) + dy * (qy * inv_det) + dz * (qz * inv_det);
+      const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+      const bool hit = (t > 0.0f) & (u >= 0.0f) & (u <= 1.0f) & (v >= 0.0f) &
+                       (u + v <= 1.0f);
+      if (hit && t < t_best) {
+        t_best = t;
+        best = i0 + 3 * k;
+      }
+    }
+    cur = pop();
   }
+
+  __device__ __forceinline__ void finish() {
+    p.t_out[r] = t_best;
+    p.off_out[r] = best;
+    if (kCount) {
+      p.counts[kCountCols * r] = popped;
+      p.counts[kCountCols * r + 1] = entered;
+      p.counts[kCountCols * r + 2] = tested;
+    }
+  }
+
+  // The whole walk of one ray (while-while: inner nodes until a leaf, then
+  // the leaf).
+  __device__ __forceinline__ void walk(int ray) {
+    begin(ray);
+    while (next_draw()) {
+      while (true) {
+        inner();
+        if (cur == kNone) break;
+        leaf();
+      }
+    }
+    finish();
+  }
+};
+
+// A ray the caller marked dead gets (t_init, -1) and zero counters.
+template <bool kCount>
+__device__ __forceinline__ void dead_ray(const Params& p, int r) {
+  p.t_out[r] = p.t_init[r];
+  p.off_out[r] = -1;
+  if (kCount) {
+    p.counts[kCountCols * r] = 0;
+    p.counts[kCountCols * r + 1] = 0;
+    p.counts[kCountCols * r + 2] = 0;
+  }
+}
+
+enum Schedule { kGrid = 0, kBatch = 1, kRefill = 2 };
+constexpr int kRefillIdle = 8;  // refill once this many lanes of a warp idle
+
+// Persistent warps: take 32 lanes from the global counter, write the dead
+// ones' results, and queue the live ones (ballot + popc) in the warp's
+// shared-memory queue until it holds `want` rays or the lanes run out.
+__device__ __forceinline__ void fill_queue(const Params& p, int* queue,
+                                           int& queued, bool& drained,
+                                           int want, bool count) {
+  const int lane = threadIdx.x & 31;
+  while (queued < want && !drained) {
+    int base = 0;
+    if (lane == 0) base = atomicAdd(p.counter, 32);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (base >= p.num_rays) {
+      drained = true;
+      break;
+    }
+    const int i = base + lane;
+    const int r = i >= p.num_rays ? -1 : ray_of(p, i);
+    const bool live = r >= 0 && (p.alive == nullptr || p.alive[r]);
+    if (r >= 0 && !live) {
+      if (count) dead_ray<true>(p, r);
+      else dead_ray<false>(p, r);
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, live);
+    if (live) queue[queued + __popc(mask & ((1u << lane) - 1u))] = r;
+    queued += __popc(mask);
+    __syncwarp();
+  }
+}
+
+// Hand the first `take` queued rays to the lanes of `to` (in lane order)
+// and shift the rest down -> this lane's ray or -1.
+__device__ __forceinline__ int take_queue(int* queue, int& queued,
+                                          unsigned to, int take) {
+  const int lane = threadIdx.x & 31;
+  const int rank = __popc(to & ((1u << lane) - 1u));
+  const int r = ((to >> lane) & 1u) && rank < take ? queue[rank] : -1;
+  const int rest = lane + take < queued ? queue[lane + take] : -1;
+  __syncwarp();
+  if (rest >= 0) queue[lane] = rest;
+  __syncwarp();
+  queued -= take;
+  return r;
+}
+
+template <bool kCount, int kSchedule, bool kStage, class Stack>
+__device__ __forceinline__ void walk_rays(const Params& p, Stack& st, int cap,
+                                          const float4* s_top,
+                                          const float4* s_draws) {
+  Walker<kCount, kStage, Stack> w{p, st, cap, s_top, s_draws};
+  if (kSchedule == kGrid) {  // one thread per ray, in blockIdx order
+    const int i = blockIdx.x * kThreads + threadIdx.x;
+    if (i >= p.num_rays) return;
+    const int r = ray_of(p, i);
+    if (p.alive == nullptr || p.alive[r]) w.walk(r);
+    else dead_ray<kCount>(p, r);
+    return;
+  }
+  // Persistent warps share a queue of live rays per warp; dead lanes take
+  // no walk slot.
+  __shared__ int s_queue[kThreads / 32][64];
+  int* queue = s_queue[threadIdx.x >> 5];
+  int queued = 0;  // warp-uniform
+  bool drained = false;
+  if (kSchedule == kBatch) {  // 32 rays at a time, each walked to its end
+    while (true) {
+      fill_queue(p, queue, queued, drained, 32, kCount);
+      if (queued == 0) break;
+      const int r = take_queue(queue, queued, 0xffffffffu, min(queued, 32));
+      if (r >= 0) w.walk(r);
+    }
+    return;
+  }
+  // kRefill: a lane whose ray is done takes the next queued ray once
+  // kRefillIdle lanes of its warp are idle (Aila & Laine's dynamic fetch),
+  // so a long ray no longer holds 31 idle lanes.  Each loop runs one
+  // while-while round per busy lane: inner nodes until a leaf, the leaf,
+  // and at a draw's end the next draw's root.
+  bool busy = false;
+  while (true) {
+    const unsigned idle = __ballot_sync(0xffffffffu, !busy);
+    if (idle == 0xffffffffu ||
+        (__popc(idle) >= kRefillIdle && !(drained && queued == 0))) {
+      fill_queue(p, queue, queued, drained, __popc(idle), kCount);
+      const int r = take_queue(queue, queued, idle,
+                               min(queued, __popc(idle)));
+      if (r >= 0) {
+        w.begin(r);
+        busy = w.next_draw();
+        if (!busy) w.finish();
+      }
+      if (__ballot_sync(0xffffffffu, busy) == 0) {
+        if (drained && queued == 0) break;
+        continue;
+      }
+    }
+    if (busy) {
+      w.inner();
+      if (w.cur != kNone) w.leaf();
+      if (w.cur == kNone && !w.next_draw()) {
+        w.finish();
+        busy = false;
+      }
+    }
+  }
+}
+
+template <bool kCount, int kSchedule, bool kSharedStack, bool kStage>
+__global__ void __launch_bounds__(kThreads) bvh_walk_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float4 s_draws[3 * kSharedDraws];
+  for (int i = threadIdx.x; i < 3 * min(p.num_draws, kSharedDraws);
+       i += kThreads)
+    s_draws[i] = __ldg(p.draws + i);
+  float4* s_top = reinterpret_cast<float4*>(smem);
+  if (kStage) {  // each draw's top records, once per CTA
+    int staged = 0;
+    for (int di = 0; di < p.num_draws && staged < p.stage_records; ++di) {
+      const int n = min(top_records(p, di), p.stage_records - staged);
+      const float4* src =
+          p.nodes + 4 * static_cast<size_t>(__float_as_int(
+                            __ldg(p.draws + 3 * di + 1).z));
+      for (int i = threadIdx.x; i < 4 * n; i += kThreads)
+        cp_async16(s_top + 4 * staged + i, src + i);
+      staged += n;
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (kSharedStack) {
+    SharedStack st{reinterpret_cast<int2*>(smem + 64 * p.stage_records) +
+                   threadIdx.x};
+    walk_rays<kCount, kSchedule, kStage>(p, st, p.stack_slots, s_top,
+                                         s_draws);
+  } else {
+    LocalStack st;
+    walk_rays<kCount, kSchedule, kStage>(p, st, kLocalStack, s_top, s_draws);
+  }
+}
+
+template <bool kCount, int kSchedule, bool kSharedStack, bool kStage>
+int launch(const Params& p, cudaStream_t stream) {
+  const auto kernel = bvh_walk_kernel<kCount, kSchedule, kSharedStack, kStage>;
+  const size_t smem =
+      64 * static_cast<size_t>(p.stage_records) +
+      (kSharedStack ? 8 * static_cast<size_t>(kThreads) * p.stack_slots : 0);
+  // per instantiation: the largest dynamic shared memory allowed so far,
+  // and the CTAs per SM at the last size asked
+  static size_t allowed = 48 * 1024;
+  static int device = -1, sms = 0, per_sm = 0;
+  static size_t per_sm_smem = 0;
+  cudaError_t err;
+  if (smem > allowed) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = smem;
+  }
+  int blocks = (p.num_rays + kThreads - 1) / kThreads;
+  if (kSchedule != kGrid) {
+    int dev = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+    if (dev != device || smem != per_sm_smem) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                            kThreads, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      device = dev;
+      per_sm_smem = smem;
+    }
+    blocks = std::min(blocks, std::max(per_sm, 1) * sms);
+  }
+  bvh_walk_kernel<kCount, kSchedule, kSharedStack, kStage>
+      <<<blocks, kThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launch on `stream` (a cudaStream_t); returns cudaGetLastError() after the
-// launch, so a refused launch is reported to the caller.
+// launch, so a refused launch is reported to the caller.  flags: bits 0-1
+// the schedule (0 one thread per ray in blockIdx order, 1 persistent warps
+// walking 32-ray batches, 2 persistent warps refilling idle lanes), bit 2
+// the stack in shared memory.
 extern "C" int wc_bvh_walk(const void* origin, const void* direction,
-                           const void* t_init, const void* bvh_min,
-                           const void* bvh_max, const void* bvh_left,
-                           const void* bvh_count, const void* indices,
-                           const void* vertices, const void* draw_node_off,
-                           const void* draw_index_off,
-                           const void* draw_vert_off, const void* draw_count,
-                           void* t_out, void* off_out, void* counts,
-                           int num_rays, int draw_capacity, int max_leaf_tris,
-                           void* stream) {
-  constexpr int kThreads = 128;
-  const int blocks = (num_rays + kThreads - 1) / kThreads;
-  bvh_walk_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(origin), static_cast<const float*>(direction),
-      static_cast<const float*>(t_init), static_cast<const float*>(bvh_min),
-      static_cast<const float*>(bvh_max), static_cast<const int*>(bvh_left),
-      static_cast<const int*>(bvh_count), static_cast<const int*>(indices),
-      static_cast<const float*>(vertices),
-      static_cast<const int*>(draw_node_off),
-      static_cast<const int*>(draw_index_off),
-      static_cast<const int*>(draw_vert_off),
-      static_cast<const int*>(draw_count), static_cast<float*>(t_out),
-      static_cast<int*>(off_out), static_cast<int*>(counts), num_rays,
-      draw_capacity, max_leaf_tris);
-  return static_cast<int>(cudaGetLastError());
+                           const void* t_init, const void* nodes,
+                           const void* tris, const void* draws,
+                           const void* lanes, const void* alive,
+                           void* counter, void* t_out, void* off_out,
+                           void* counts, int num_rays, int num_draws,
+                           int stack_slots, int top_levels, int stage_records,
+                           int flags, void* stream) {
+  const Params p{static_cast<const float*>(origin),
+                 static_cast<const float*>(direction),
+                 static_cast<const float*>(t_init),
+                 static_cast<const float4*>(nodes),
+                 static_cast<const float4*>(tris),
+                 static_cast<const float4*>(draws),
+                 static_cast<const int*>(lanes),
+                 static_cast<const bool*>(alive),
+                 static_cast<int*>(counter),
+                 static_cast<float*>(t_out),
+                 static_cast<int*>(off_out),
+                 static_cast<int*>(counts),
+                 num_rays,
+                 num_draws,
+                 stack_slots,
+                 top_levels,
+                 stage_records};
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int schedule = flags & 3, shared = (flags >> 2) & 1;
+  if (schedule > kRefill || (schedule != kGrid && counter == nullptr))
+    return cudaErrorInvalidValue;
+  // every (counts, schedule, stack, staging) instance
+  using Launch = int (*)(const Params&, cudaStream_t);
+  static const Launch table[24] = {
+#define WC_WALK_ROW(C, S)                                              \
+  launch<C, S, false, false>, launch<C, S, false, true>,               \
+      launch<C, S, true, false>, launch<C, S, true, true>
+      WC_WALK_ROW(false, kGrid), WC_WALK_ROW(false, kBatch),
+      WC_WALK_ROW(false, kRefill), WC_WALK_ROW(true, kGrid),
+      WC_WALK_ROW(true, kBatch), WC_WALK_ROW(true, kRefill)
+#undef WC_WALK_ROW
+  };
+  return table[(counts != nullptr) * 12 + schedule * 4 + shared * 2 +
+               (stage_records > 0)](p, s);
 }
 
 extern "C" const char* wc_cuda_error_string(int code) {

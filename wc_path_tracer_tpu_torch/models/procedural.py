@@ -101,10 +101,20 @@ def bunny_gltf_scene(max_blas_tris=None, device=None):
 
 def _query(o, d, t_init, coords, mat, live, clusters, variant, dev):
     """(origin, direction, t_init) + the cluster tables of ``variant``: "mt"
-    (tris, cmin, cmax) or "mxu" (trisW, cmin, cmax, mat_tbl)."""
+    (tris, cmin, cmax) or "mxu" (trisW, cmin, cmax, mat_tbl); or, for
+    "bank", + (mesh,): a one-draw mesh bank of the live slots' triangles in
+    slot order, with its BVH (for the BVH walks)."""
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=dev)
 
+    if variant == "bank":
+        b = SceneBuilder()
+        for m in range(int(mat.max()) + 1):
+            b.add_material(MATERIAL_LAMBERTIAN, albedo=(0.5, 0.5, 0.5))
+        verts = np.stack([x[live] for x in coords], 1).reshape(-1, 3)
+        b.add_mesh(verts, np.arange(verts.shape[0], dtype=np.int32),
+                   tri_material=mat[live])
+        return (f32(o), f32(d), f32(t_init), b.build(dev).mesh)
     make = {"mt": cluster.tables_from_coords,
             "mxu": cluster.mxu_tables_from_coords}[variant]
     tables = make(*(f32(x) for x in coords), f32(mat),
@@ -117,7 +127,8 @@ def tie_heavy_query(n_rays: int = 4096, clusters: int = 12, seed: int = 0,
     """A seeded closest-hit query built to tie -> (origin, direction, t_init)
     + the tables of ``variant`` ("mt": tris, cmin, cmax; "mxu": trisW, cmin,
     cmax, mat_tbl, built from the same coordinates) for
-    ``kernels.cluster.cluster_sweep``.
+    ``kernels.cluster.cluster_sweep``; "bank": a mesh bank of the same
+    triangles for the BVH walks (``kernels.traversal``).
 
     48 base triangles (tilted quads' halves facing +z), rising in x and z, fill
     ``clusters`` clusters of 128 slots: each cluster draws from a window of

@@ -10,9 +10,11 @@ selection rules of the brute path.
   ``cfg.traversal`` "stack" (per-lane stack, near child first) or
   "stackless" (escape links, fixed order).
 - ``render_frame_pallas`` (dispatch "pallas"): the stack walk through the
-  hand-written CUDA kernel (``traversal.bvh_walk_kernel``).  The JAX
-  package padded rays to its 1024-lane packet and split big banks into
-  SMEM-sized chunks; a one-thread-per-ray kernel needs neither.
+  hand-written CUDA kernel (``traversal.bvh_walk_kernel``), which walks
+  each ray on its own over every draw in one launch, and only the lanes the
+  transport has not terminated (``accepts_alive``).  The JAX package padded
+  rays to its 1024-lane packet and split big banks into SMEM-sized chunks;
+  the kernel needs neither.
 
 The walks are discrete searches on detached values and return the winner's
 first-index offset; gradients flow through the re-shade, which recovers the
@@ -55,27 +57,38 @@ def intersect_scene_bvh(scene: Scene, origin, direction,
 
 
 def intersect_scene_pallas(scene: Scene, origin, direction, cfg: RenderConfig,
-                           walk_fn=None) -> golden.HitRecord:
+                           walk_fn=None, alive=None) -> golden.HitRecord:
     """Closest hit through the BVH-walk kernel (any ray count).  ``walk_fn``
     overrides the walk (default ``traversal.bvh_walk_kernel``, which runs
-    the plain walk on CPU tensors)."""
+    the plain walk on CPU tensors); it takes ``alive=`` when given.
+    ``alive``: optional (R,) bool of lanes the transport has not
+    terminated; the others are not walked (``t`` stays the sphere search's,
+    no triangle hit).  CONTRACT: on non-alive lanes the record is
+    undefined; every consumer masks it, as golden._bounce_segment does (the
+    JAX package's ``accepts_alive`` contract)."""
     sphere = golden.sphere_closest(scene, origin, direction, cfg)
     walk = traversal.bvh_walk_kernel if walk_fn is None else walk_fn
+    kw = {} if alive is None else dict(alive=alive)
     t_tri, off = walk(origin.detach().contiguous(),
                       direction.detach().contiguous(), sphere[0].contiguous(),
-                      scene.mesh)
+                      scene.mesh, **kw)
     return _reshade(scene, origin, direction, cfg, sphere, t_tri, off)
+
+
+intersect_scene_pallas.accepts_alive = True
 
 
 def make_intersect_fn_pallas(scene: Scene, walk_fn=None):
     """intersect_fn for golden's transport through ``walk_fn`` (default the
-    kernel walk), after checking that every BVH of the scene fits the
-    walk's stack."""
+    kernel walk; it must take ``alive=``), after checking that every BVH of
+    the scene fits the walk's stack."""
     traversal.check_stack_depth(scene.mesh)
 
-    def fn(scene, origin, direction, cfg):
-        return intersect_scene_pallas(scene, origin, direction, cfg, walk_fn)
+    def fn(scene, origin, direction, cfg, alive=None):
+        return intersect_scene_pallas(scene, origin, direction, cfg, walk_fn,
+                                      alive)
 
+    fn.accepts_alive = True
     return fn
 
 
@@ -97,7 +110,7 @@ def render_frame(scene, mats, cfg, frame_count):
 
 def render_frame_pallas(scene, mats, cfg, frame_count):
     """One frame with the BVH-walk kernel as the closest-hit backend
-    (dispatch name "pallas").  The stack-depth check runs on the scene's
-    first walk only (``traversal.check_stack_depth``)."""
+    (dispatch name "pallas"), walking only live lanes.  The kernel's tables
+    are packed on the scene's first walk only (``traversal.walk_tables``)."""
     return golden.render_frame(scene, mats, cfg, frame_count,
                                intersect_fn=intersect_scene_pallas)
