@@ -21,12 +21,12 @@
 // What bounds it.  Not the bytes or the operations (the bound, 0.0033 ms
 // on a 512^2 bunny frame's queries, is the bytes of the rays and tables):
 // each ray is a chain of dependent steps -- load a node, test, choose, load
-// the next -- and the time is the longest rays' chains (up to ~110 inner
-// nodes entered on that cell, ~10x the mean) stretched by divergence
-// inside their warps and by the other warps on their SM.  Measured on an
-// H100 (PERF.md, PR 5): one warp walking one ray in all 32 lanes takes 0.4
-// of the time of 32 different rays, and a ray order that breaks the pixel
-// order's coherence doubles it.  The first port spent ~470 scattered scalar
+// the next -- of very different lengths (up to ~110 inner nodes entered on
+// that cell, ~10x the mean), and a warp's lanes diverge in control and in
+// addresses.  Measured on an H100 (PERF.md): one warp walking one ray in
+// all 32 lanes takes 0.38-0.47 of the time of 32 different rays, and an
+// order that evens a warp's work but breaks the pixel order's coherence is
+// 1.4-1.8 times slower.  The first port spent ~470 scattered scalar
 // loads and local-stack accesses per primary ray: every box fetched and
 // tested twice (at its parent, to pick the near child, and at its own pop),
 // 6 scalar loads per box plus the node's left/count, two rounds of loads

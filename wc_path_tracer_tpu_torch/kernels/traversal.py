@@ -165,8 +165,9 @@ def _node_order(mesh):
         while frontier.size:
             if level >= STACK_DEPTH or (frontier < 0).any() \
                     or (frontier >= N).any():
-                raise ValueError("walk_tables: a tree of this bank leaves its "
-                                 "table or is deeper than the stack walk takes")
+                raise ValueError("walk_tables: a tree of this bank leaves "
+                                 "its table or is deeper than the stack walk "
+                                 "takes")
             if seen[frontier].any() or \
                     np.unique(frontier).size < frontier.size:
                 raise ValueError("walk_tables: a node of this bank is reached "
