@@ -32,7 +32,19 @@ the time walking every lane and the live lanes only, the bound, the nodes
 and triangles each ray visits, and the time of each build.
 It also renders the 1024 x 1024 Cornell box through the brute-force path
 and the plain "wavefront" BVH walks at 64 x 64, checks the images, and
-prints times beside the card's name and power limit.  The last two lines of
+prints times beside the card's name and power limit.
+
+Its [train] phase drives the training path: the bench's fwd+bwd step
+(``parallel.render.scene_loss_grad`` with the bench loss, mean(img^2) over
+albedo, emission, emission_strength and roughness) on the 1024 x 1024
+Cornell box and on the 512 x 512 bunny through each kernel path, with next-
+event estimation and MIS off and on (the NEE cells on a bunny lit by one
+emissive sphere); the NEE shadow queries of B1 and B2 (through
+``sweep.occluded_sweep``) and B3 (the full closest hit) held against their
+twins and timed against their bounds; kernel-vs-twin parity of the shadow
+flags, image, loss and grads of a 64 x 64 lit bunny on all three paths; a
+5-step inverse-rendering run on the Cornell box with checkpoints, resumed;
+and 3 steps moving the lit bunny's vertices through B1.  The last two lines of
 standard output are a JSON line describing every ported kernel and
 {"ok": true, "device": {...}}.  Any failed check raises: the script then
 exits non-zero and prints no result.  It fails without a CUDA card and
@@ -42,21 +54,33 @@ outside the repository (the port's package must be importable).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import torch
 
 from wc_path_tracer_tpu_torch import RenderConfig
 from wc_path_tracer_tpu_torch.kernels import build, cluster, traversal
 from wc_path_tracer_tpu_torch.models.builtin import cornell_box_scene
-from wc_path_tracer_tpu_torch.models.procedural import (bunny_gltf_scene,
-                                                         signed_zero_query,
-                                                         tie_heavy_query)
+from wc_path_tracer_tpu_torch.models.gltf import parse_gltf
+from wc_path_tracer_tpu_torch.models.procedural import (
+    BUNNY_GLB, bunny_gltf_scene, signed_zero_query, tie_heavy_query)
+from wc_path_tracer_tpu_torch.optim import params as reg
+from wc_path_tracer_tpu_torch.optim.inverse import (InverseRenderConfig,
+                                                    run_inverse_rendering)
+from wc_path_tracer_tpu_torch.parallel import render as prender
 from wc_path_tracer_tpu_torch.render import dispatch, golden, sweep, wavefront
 from wc_path_tracer_tpu_torch.scene.camera import camera_matrices
+from wc_path_tracer_tpu_torch.scene.types import (MATERIAL_LAMBERTIAN,
+                                                  MATERIAL_METAL,
+                                                  SceneBuilder)
 
 H100_FP32_FLOPS = 67e12      # FP32 non-tensor peak, H100 SXM at 700 W
 H100_HBM_BYTES = 3.35e12     # HBM3 bytes/s, H100 SXM
@@ -79,6 +103,17 @@ LAYOUTS = [(1, 1), (2, 2), (2, 4), (4, 2), (4, 4), (8, 4)]
 BUNNY = dict(width=512, height=512, samples=1, max_bounces=4, sky="gradient")
 CORNELL = dict(width=1024, height=1024, samples=1, max_bounces=4,
                sky="gradient")
+NEE = dict(use_nee=True, mis=True)
+PARITY = dict(width=64, height=64, samples=1, max_bounces=2, sky="gradient",
+              **NEE)
+INVERSE = dict(width=128, height=128, samples=1, max_bounces=4, sky="black",
+               **NEE)
+# the multi-device dry run's trainable set
+DRY_RUN_TRAINABLE = ("albedo", "emission_strength", "roughness", "vertices",
+                     "camera_position")
+KERNELS = {"B1": cluster.cluster_sweep_kernel,
+           "B2": cluster.cluster_sweep_mxu_kernel,
+           "B3": traversal.bvh_walk_kernel}
 
 
 def check(ok, what):
@@ -720,12 +755,472 @@ def mxu_phase(smi, scene, mats, cfg):
         frame_vs_mt_within_2e5=exact)
 
 
+def lit_bunny_scene(max_blas_tris=None):
+    """``bunny_gltf_scene()``'s scene plus one emissive sphere of
+    ``default_scene``'s "Left" material (emission 1.6, strength 1) at
+    (-2, 3, 1), radius 0.5, clear of the bunny's bounds (x +-1.18, y -0.18
+    to 2.18, z +-1.06): the stock bunny is lit by the sky alone, so NEE
+    would sample nothing there."""
+    model = parse_gltf(BUNNY_GLB)
+    b = SceneBuilder()
+    gm = model.materials[model.meshes[0].material]
+    body = b.add_material(MATERIAL_LAMBERTIAN, albedo=gm["albedo"])
+    ground = b.add_material(MATERIAL_METAL, albedo=(0.6, 0.6, 0.6),
+                            roughness=0.9)
+    for mesh in model.meshes:
+        b.add_mesh(mesh.vertices, mesh.indices, normals=mesh.normals,
+                   uvs=mesh.uvs, tri_material=body,
+                   max_blas_tris=max_blas_tris)
+    b.add_sphere((0.0, -100.0, 0.0), 100.0, ground)
+    lamp = b.add_material(MATERIAL_METAL, emission=(1.6, 1.6, 1.6),
+                          emission_strength=1.0)
+    b.add_sphere((-2.0, 3.0, 1.0), 0.5, lamp)
+    return b.build("cuda")
+
+
+def reset_counts():
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def read_counts():
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def grad_stats(grads):
+    """(every leaf finite, global grad norm)."""
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    norm = math.sqrt(sum(float(torch.sum(g * g)) for g in grads.values()))
+    return finite, norm
+
+
+def segments_per_s(cfg, seconds):
+    """The bench's rate: W·H·spp·(bounces+1) path segments per second."""
+    return (cfg.width * cfg.height * cfg.samples * (cfg.max_bounces + 1)
+            / seconds / 1e6)
+
+
+def train_cell(smi, label, scene, mats, cfg, renderer, per_step):
+    """The bench's fwd+bwd step (mean(img^2) over the bench's trainables)
+    through ``renderer``: 1 warm-up step, then 4 steps timed on the host
+    clock (synchronized), with every kernel's launch count set to 0 just
+    before them; ``per_step`` {kernel: launches per step} is what the path
+    must launch."""
+    loss_grad = prender.scene_loss_grad(cfg, prender.BENCH_TRAINABLE,
+                                        renderer)
+    target = torch.zeros((cfg.height, cfg.width, 3), device="cuda")
+    loss_grad(scene, mats, 0, target)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for frame in range(1, 5):
+        (loss, grads), s = sync_time(
+            lambda: loss_grad(scene, mats, frame, target))
+        times.append(s * 1e3)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite, norm = grad_stats(grads)
+    want = {k: 4 * per_step.get(k, 0) for k in KERNELS}
+    check(counts == want, f"[train] {label}: 4 steps launched {counts} "
+          f"(expected {want})")
+    check(finite and norm > 0.0, f"[train] {label}: every grad leaf is "
+          f"finite, grad norm {norm:.6g} > 0")
+    ms = sum(times) / len(times)
+    rate = segments_per_s(cfg, ms / 1e3)
+    print(f"[train] {label}: {ms:.2f} ms/step (4 steps after 1 warm-up, "
+          f"{min(times):.2f}-{max(times):.2f}), {rate:.2f} Mrays/s, peak "
+          f"{peak:.2f} GiB, loss {float(loss):.6g}, grad norm {norm:.6g}, "
+          f"launches {counts}, on {smi}", flush=True)
+    return dict(ms_per_step=ms, step_ms=times, mrays_s=rate, peak_gib=peak,
+                loss=float(loss), grad_norm=norm, launches=counts)
+
+
+def sweep_shadow_queries(smi, scene, mats, cfg):
+    """One NEE frame's sweep queries through B1 (B2 under cluster_kernel
+    "mxu"), closest-hit and shadow queries alternating; each of the five
+    shadow queries (``occluded_sweep``: bounded at the light, -inf on
+    disabled lanes) against the twin bit for bit (payload and visits),
+    timed, against its bound, with its active-lane share and visits
+    against ``nact`` (the block-wide early exit trims a list only where
+    visits < nact)."""
+    mxu = cfg.cluster_kernel == "mxu"
+    kernel, plain = sweep_fns(mxu)
+    queries = []
+
+    def capture(*args):
+        queries.append([x.clone() for x in args])
+        return kernel(*args)
+
+    with torch.no_grad():
+        golden.render_frame(scene, mats, cfg, 0, intersect_fn=sweep
+                            .make_intersect_fn(scene, cfg, block_fn=capture))
+    check(len(queries) == 2 * (cfg.max_bounces + 1),
+          f"one NEE frame makes {cfg.max_bounces + 1} closest-hit and "
+          f"{cfg.max_bounces + 1} shadow sweep queries")
+    name = "cluster_sweep_mxu" if mxu else "cluster_sweep"
+    out = []
+    for q, args in enumerate(queries[1::2]):
+        RB, B = args[3].shape[:2]
+        vk = torch.zeros(RB, dtype=torch.int32, device="cuda")
+        vp = torch.zeros_like(vk)
+        k, p = kernel(*args, vk), plain(*args, vp)
+        torch.cuda.synchronize()
+        rec = sweep_parity(f"shadow {q}", k, p, vk, vp, args[0],
+                           "mxu " if mxu else "")
+        check(rec["bitwise"] and rec["visits_equal"],
+              f"{name} shadow query {q}: payload and visits equal the "
+              "twin's bit for bit")
+        ops = rec["visits"] * B * cluster.CLUSTER_TRIS * (
+            OPS_PER_PLANE_TEST if mxu else OPS_PER_TEST)
+        bound_ms, bound_by = bound(ops, nbytes(*args) + nbytes(args[4]))
+        ms = event_ms(lambda: kernel(*args), 20)
+        active = float((args[3][..., 6] > 0.0).float().mean())
+        rec.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                   active_share=active,
+                   early_exit_trims=rec["visits"] < rec["nact"])
+        out.append(rec)
+        trim = ("the early exit trims" if rec["early_exit_trims"]
+                else "no list trimmed")
+        print(f"[shadow] {name} bounce {q}: {ms:.4f} ms per launch, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.1f}x; active "
+              f"lanes {active:.4f}; visits {rec['visits']} of nact "
+              f"{rec['nact']} ({trim}); {rec['hits']} occluded, on {smi}",
+              flush=True)
+    return out
+
+
+def walk_shadow_queries(smi, scene, mats, cfg):
+    """One NEE "pallas" frame's walks (closest hit and shadow alternating;
+    the shadow walks take the NEE lanes as their alive mask); each shadow
+    walk against the twin bit for bit (t, off, counters), timed, against
+    its bound."""
+    calls = []
+
+    def capture(o, d, t0, mesh, alive=None):
+        calls.append([x.clone() for x in (o, d, t0, alive)])
+        return traversal.bvh_walk_kernel(o, d, t0, mesh, alive=alive)
+
+    with torch.no_grad():
+        golden.render_frame(scene, mats, cfg, 0, intersect_fn=wavefront
+                            .make_intersect_fn_pallas(scene, capture))
+    check(len(calls) == 2 * (cfg.max_bounces + 1),
+          f"one NEE 'pallas' frame makes {cfg.max_bounces + 1} closest-hit "
+          f"and {cfg.max_bounces + 1} shadow walks")
+    m = scene.mesh
+    nd = int(m.draw_count)
+    out = []
+    for q, (o, d, t0, alive) in enumerate(calls[1::2]):
+        twin, _ = walk_twin((o, d, t0, alive), m)
+        ck = torch.zeros_like(twin[2])
+        tk, ok = traversal.bvh_walk_kernel(o, d, t0, m, ck, alive=alive)
+        torch.cuda.synchronize()
+        want = walk_expected(twin, t0, alive)
+        same = all(torch.equal(a, b) for a, b in zip((tk, ok, ck), want))
+        check(same, f"bvh_walk shadow walk {q}: t, off and counters of the "
+              "live lanes equal the twin's bit for bit")
+        live = int(alive.sum())
+        pops, inner, tests = (int(x) for x in ck.long().sum(0))
+        ops = (live * nd * OPS_PER_SLAB + pops * OPS_PER_POP
+               + inner * OPS_PER_INNER + tests * OPS_PER_TEST)
+        nb = nbytes(o, d, t0, alive, tk, ok, m.bvh_min, m.bvh_max,
+                    m.bvh_left, m.bvh_count, m.indices, m.vertices)
+        bound_ms, bound_by = bound(ops, nb)
+        ms = event_ms(lambda: traversal.bvh_walk_kernel(o, d, t0, m,
+                                                        alive=alive), 20)
+        rec = dict(query=q, bitwise=same, ms=ms, bound_ms=bound_ms,
+                   bound_by=bound_by, live_share=live / o.shape[0],
+                   hits=int((ok >= 0).sum()), nodes_popped=pops,
+                   tris_tested=tests)
+        out.append(rec)
+        print(f"[shadow] bvh_walk bounce {q}: {ms:.4f} ms per launch, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.1f}x; live "
+              f"lanes {live / o.shape[0]:.4f}, {rec['hits']} hits, on {smi}",
+              flush=True)
+    return out
+
+
+def parity_run(scene, mats, cfg, path, plain):
+    """Bench loss and grads (and the vertex grads) of one 64 x 64 NEE frame
+    through ``path`` ("B1", "B2", "B3"), the kernel or (``plain``) its twin,
+    under deterministic algorithms -> (shadow flags or shadow walks, image,
+    loss, grads, ops PyTorch names as having no deterministic form)."""
+    shadow = []
+
+    def make(s, c):
+        if path == "B3":
+            walk = (traversal.bvh_walk_plain if plain
+                    else traversal.bvh_walk_kernel)
+            calls = []
+
+            def rec_walk(o, d, t0, mesh, alive=None):
+                res = walk(o, d, t0, mesh, alive=alive)
+                calls.append(res)
+                if len(calls) % 2 == 0:        # the shadow walk
+                    shadow.append(res)
+                return res
+
+            return wavefront.make_intersect_fn_pallas(s, rec_walk)
+        fn = sweep.make_intersect_fn(
+            s, c, block_fn=sweep_fns(path == "B2")[1] if plain else None)
+        occ = fn.occlusion_fn
+
+        def rec_occ(*args):
+            flags = occ(*args)
+            shadow.append(flags)
+            return flags
+
+        fn.occlusion_fn = rec_occ
+        return fn
+
+    trainable = prender.BENCH_TRAINABLE + ("vertices",)
+    target = torch.zeros((cfg.height, cfg.width, 3), device="cuda")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            loss, grads = prender.scene_loss_grad(cfg, trainable, make)(
+                scene, mats, 1, target)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    flags = list(shadow)
+    with torch.no_grad():
+        image = golden.render_frame(scene, mats, cfg, 1,
+                                    intersect_fn=make(scene, cfg))
+    return flags, image, loss, grads, nondet
+
+
+def train_parity(smi, lit, lit_split, mats):
+    """Kernel path against plain-twin path on a 64 x 64 lit bunny, NEE+MIS,
+    2 bounces, for B1, B2 and B3: shadow flags (B3: shadow walks' t and
+    off), image and loss bitwise; grads bitwise under deterministic
+    algorithms, or within 1e-6 of each leaf's max |g| where an op has no
+    deterministic CUDA form (named)."""
+    out = {}
+    cfg = RenderConfig(**PARITY)
+    for path, scene, c in (("B1", lit, cfg),
+                           ("B2", lit, cfg.replace(cluster_kernel="mxu")),
+                           ("B3", lit_split, cfg)):
+        fk, ik, lk, gk, nk = parity_run(scene, mats, c, path, False)
+        fp, ip, lp, gp, np_ = parity_run(scene, mats, c, path, True)
+        nondet = sorted(set(nk) | set(np_))
+        same_flags = len(fk) == len(fp) == c.max_bounces + 1 and all(
+            all(torch.equal(a, b) for a, b in zip(x, y))
+            if isinstance(x, tuple) else torch.equal(x, y)
+            for x, y in zip(fk, fp))
+        grad_err = {k: float((gk[k] - gp[k]).abs().max())
+                    / max(float(gp[k].abs().max()), 1e-30) for k in gk}
+        bitwise = all(torch.equal(gk[k], gp[k]) for k in gk)
+        rec = dict(shadow_equal=same_flags, image_equal=bool(
+            torch.equal(ik, ip)), loss_equal=bool(torch.equal(lk, lp)),
+            grads_bitwise=bitwise, grad_rel_err=grad_err,
+            nondeterministic_ops=nondet,
+            occluded=int(sum(int(f.sum()) for f in fk)) if path != "B3"
+            else None)
+        out[path] = rec
+        print(f"[parity] train {path}: {json.dumps(rec)}", flush=True)
+        check(same_flags and rec["image_equal"] and rec["loss_equal"],
+              f"train {path}: kernel and twin paths give the same shadow "
+              "queries, image and loss bit for bit (64 x 64 lit bunny, "
+              "NEE+MIS)")
+        if nondet:
+            check(max(grad_err.values()) <= 1e-6,
+                  f"train {path}: grads within 1e-6 of each leaf's max |g| "
+                  f"(no deterministic CUDA form: {nondet})")
+        else:
+            check(bitwise, f"train {path}: grads bitwise equal under "
+                  "deterministic algorithms")
+    return out
+
+
+def step_split(scene, mats, cfg, renderer):
+    """Host ms (synchronized) of the forward (building the graph) and of
+    the backward of one bench-loss step."""
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in reg.get_params(scene, None,
+                                         prender.BENCH_TRAINABLE).items()}
+    s, _ = reg.apply_params(scene, None, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = golden.render_frame(s, mats, cfg, 1, intersect_fn=dispatch
+                              .get_intersect_fn(renderer, s, cfg))
+    loss = torch.mean(img * img)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def inverse_run(smi, cam_scene_cfg):
+    """The dry run's training check on the Cornell box, NEE+MIS: one train
+    step lowers the loss of frame 0 with every grad finite; a 5-step
+    ``run_inverse_rendering`` (checkpoints every 2 steps) lowers the loss;
+    3 steps, a checkpoint and a resume to 5 reproduce its loss curve."""
+    scene, cam = cam_scene_cfg
+    cfg = RenderConfig(**INVERSE)
+    target = torch.zeros((cfg.height, cfg.width, 3), device="cuda")
+    step = prender.make_train_step(
+        cfg, functools.partial(torch.optim.Adam, lr=1e-2),
+        DRY_RUN_TRAINABLE, "auto")
+    s1, c1, state, loss0 = step(scene, cam, None, 0, target)
+    loss1, _ = prender.scene_loss_grad(cfg, DRY_RUN_TRAINABLE, "auto")(
+        s1, c1, 0, target)
+    finite, norm = grad_stats(state.grads)
+    check(finite and norm > 0.0, f"[inverse] every grad leaf of "
+          f"{DRY_RUN_TRAINABLE} is finite, norm {norm:.6g}")
+    check(float(loss1) < float(loss0), f"[inverse] one step lowers the "
+          f"frame-0 loss: {float(loss0):.6g} -> {float(loss1):.6g}")
+
+    def inv(steps):
+        return InverseRenderConfig(trainable=DRY_RUN_TRAINABLE,
+                                   learning_rate=0.1, steps=steps,
+                                   vary_seed=True, log_every=1)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, hist_a = run_inverse_rendering(
+            scene, cam, target, cfg, inv(5), renderer="auto",
+            checkpoint_dir=os.path.join(tmp, "a"), checkpoint_every=2)
+        run_inverse_rendering(scene, cam, target, cfg, inv(3),
+                              renderer="auto",
+                              checkpoint_dir=os.path.join(tmp, "b"),
+                              checkpoint_every=2)
+        _, _, hist_b = run_inverse_rendering(
+            scene, cam, target, cfg, inv(5), renderer="auto",
+            checkpoint_dir=os.path.join(tmp, "b"), resume=True)
+    losses = [h["loss"] for h in hist_a]
+    check(losses[-1] < losses[0], f"[inverse] 5 steps lower the loss: "
+          + " -> ".join(f"{x:.6g}" for x in losses))
+    full = {h["step"]: h["loss"] for h in hist_a}
+    worst = max(abs(h["loss"] - full[h["step"]]) / abs(full[h["step"]])
+                for h in hist_b)
+    check([h["step"] for h in hist_b] == [3, 4] and worst <= 1e-5,
+          f"[inverse] the resumed run reproduces steps 3-4 of the loss "
+          f"curve (max rel diff {worst:.3g} <= 1e-5)")
+    ms = [(b["wall_s"] - a["wall_s"]) * 1e3
+          for a, b in zip(hist_a, hist_a[1:])]
+    print(f"[inverse] Cornell 128^2 NEE+MIS, {DRY_RUN_TRAINABLE}: "
+          f"{sum(ms) / len(ms):.2f} ms per step after the first, losses "
+          f"{losses}, on {smi}", flush=True)
+    return dict(losses=losses, resumed_losses=[h["loss"] for h in hist_b],
+                resume_max_rel_diff=worst, ms_per_step=sum(ms) / len(ms),
+                loss_before_after_one_step=[float(loss0), float(loss1)])
+
+
+def vertex_steps(smi, lit, cam):
+    """3 inverse-rendering steps of the lit 512^2 bunny (NEE+MIS) moving
+    its vertices (and albedo) through B1."""
+    cfg = RenderConfig(**BUNNY, **NEE)
+    target = torch.zeros((cfg.height, cfg.width, 3), device="cuda")
+    reset_counts()
+    out, _, hist = run_inverse_rendering(
+        lit, cam, target, cfg, InverseRenderConfig(
+            trainable=("albedo", "vertices"), learning_rate=1e-3, steps=3,
+            vary_seed=True, log_every=1), renderer="auto")
+    counts = read_counts()
+    check(counts == {"B1": 30, "B2": 0, "B3": 0},
+          f"[inverse] 3 lit-bunny steps launched {counts} (B1: 10 per step)")
+    moved = float((out.mesh.vertices - lit.mesh.vertices).abs().max())
+    check(moved > 0.0 and all(math.isfinite(h["grad_norm"]) for h in hist),
+          f"[inverse] the vertices moved (max {moved:.3g}), grads finite")
+    ms = [hist[0]["wall_s"] * 1e3] + [(b["wall_s"] - a["wall_s"]) * 1e3
+                                      for a, b in zip(hist, hist[1:])]
+    print(f"[inverse] lit bunny 512^2 NEE+MIS, albedo + vertices through "
+          f"B1: ms per step {', '.join(f'{x:.1f}' for x in ms)} (the first "
+          f"includes the optimizer's set-up), on {smi}", flush=True)
+    return dict(ms_per_step=ms, launches=counts, max_vertex_move=moved)
+
+
+def train_phase(smi, scene, cam, split_scene, cscene, ccam):
+    """The [train] phase: every cell, the shadow queries, the parity, the
+    inverse-rendering run -> its JSON record."""
+    mats = camera_matrices(cam, 1.0)
+    cmats = camera_matrices(ccam, 1.0)
+    lit, lit_split = lit_bunny_scene(), lit_bunny_scene(max_blas_tris=8192)
+    bunny, cornell = RenderConfig(**BUNNY), RenderConfig(**CORNELL)
+    cells = {}
+    for label, sc, m, cfg, renderer, per_step in (
+            ("cornell 1024^2", cscene, cmats, cornell, "auto", {}),
+            ("cornell 1024^2 nee+mis", cscene, cmats,
+             cornell.replace(**NEE), "auto", {}),
+            ("bunny 512^2 auto (B1)", scene, mats, bunny, "auto",
+             {"B1": 5}),
+            ("bunny 512^2 mxu (B2)", scene, mats,
+             bunny.replace(cluster_kernel="mxu"), "auto", {"B2": 5}),
+            ("bunny 512^2 pallas (B3)", split_scene, mats, bunny, "pallas",
+             {"B3": 5}),
+            ("lit bunny 512^2 nee+mis auto (B1)", lit, mats,
+             bunny.replace(**NEE), "auto", {"B1": 10}),
+            ("lit bunny 512^2 nee+mis mxu (B2)", lit, mats,
+             bunny.replace(cluster_kernel="mxu", **NEE), "auto", {"B2": 10}),
+            ("lit bunny 512^2 nee+mis pallas (B3)", lit_split, mats,
+             bunny.replace(**NEE), "pallas", {"B3": 10})):
+        cells[label] = train_cell(smi, label, sc, m, cfg, renderer,
+                                  per_step)
+
+    shadow = {
+        "B1": sweep_shadow_queries(smi, lit, mats, bunny.replace(**NEE)),
+        "B2": sweep_shadow_queries(smi, lit, mats, bunny.replace(
+            cluster_kernel="mxu", **NEE)),
+        "B3": walk_shadow_queries(smi, lit_split, mats,
+                                  bunny.replace(**NEE))}
+    parity = train_parity(smi, lit, lit_split, mats)
+
+    split = {}
+    for label, sc, m, cfg in (("cornell 1024^2", cscene, cmats, cornell),
+                              ("bunny 512^2 auto (B1)", scene, mats, bunny)):
+        fwd, bwd = step_split(sc, m, cfg, "auto")
+        split[label] = dict(forward_ms=fwd, backward_ms=bwd,
+                            backward_share=bwd / (fwd + bwd))
+        print(f"[profile] {label} fwd+bwd step: forward {fwd:.2f} ms, "
+              f"backward {bwd:.2f} ms ({bwd / (fwd + bwd):.1%} of the step;"
+              f" host clock, synchronized), on {smi}", flush=True)
+    profiles = {}
+    for label, sc, m, cfg in (("cornell 1024^2", cscene, cmats, cornell),
+                              ("bunny 512^2", scene, mats, bunny)):
+        loss_grad = prender.scene_loss_grad(cfg, prender.BENCH_TRAINABLE,
+                                            "auto")
+        target = torch.zeros((cfg.height, cfg.width, 3), device="cuda")
+        profiles[f"{label} fwd+bwd step"] = device_profile(
+            smi, f"{label} fwd+bwd step",
+            lambda: loss_grad(sc, m, 7, target))
+
+    inverse = inverse_run(smi, cornell_box_scene(device="cuda"))
+    vertices = vertex_steps(smi, lit, cam)
+    return dict(cells=cells, shadow=shadow, parity=parity,
+                step_split=split, profiles=profiles, inverse=inverse,
+                lit_bunny_vertex_steps=vertices, card=smi)
+
+
+def shadow_entry(train, key):
+    """A kernel's NEE shadow-query keys for the kernels line: ms per launch
+    and bound averaged over the lit bunny's five shadow queries, and its
+    launches in each [train] cell."""
+    per = train["shadow"][key]
+    by = [r["bound_by"] for r in per]
+    return dict(
+        shadow_ms=sum(r["ms"] for r in per) / len(per),
+        shadow_bound_ms=sum(r["bound_ms"] for r in per) / len(per),
+        shadow_bound_by=max(set(by), key=by.count),
+        shadow_note="mean per launch over one lit 512^2 bunny NEE+MIS "
+                    "frame's 5 shadow queries",
+        train_launches={label: c["launches"][key]
+                        for label, c in train["cells"].items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuBLAS needs a fixed workspace under deterministic algorithms (the
+    # [train] grad parity); read when its first handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -936,6 +1431,12 @@ def main() -> int:
             ("cornell 1024^2 frame",
              lambda: golden.render_frame(cscene, cmats, ccfg, 7)))}
 
+    # -- 10. the training path: fwd+bwd cells, NEE shadow queries, parity,
+    # inverse rendering ----------------------------------------------------
+    train = train_phase(smi, scene, cam, split_scene, cscene, ccam)
+    for entry, key in ((b2, "B2"), (b3, "B3")):
+        entry.update(shadow_entry(train, key))
+
     print(json.dumps({"kernels": [{
         "name": "cluster_sweep",
         "route": "cuda",
@@ -960,6 +1461,8 @@ def main() -> int:
         "cornell_peak_gib": cpeak,
         "build_s": build_s,
         "profiles": profiles,
+        **shadow_entry(train, "B1"),
+        "train": train,
     }, b2, b3]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -9,6 +9,7 @@ without the repository's conftest:
 
 import dataclasses
 import functools
+import warnings
 
 import numpy as np
 import pytest
@@ -16,12 +17,17 @@ import torch
 
 from wc_path_tracer_tpu_torch import RenderConfig
 from wc_path_tracer_tpu_torch.kernels import cluster, traversal
-from wc_path_tracer_tpu_torch.models.procedural import (bunny_gltf_scene,
+from wc_path_tracer_tpu_torch.models.procedural import (bumpy_sphere,
+                                                         bunny_gltf_scene,
                                                          bunny_like_scene,
                                                          signed_zero_query,
                                                          tie_heavy_query)
+from wc_path_tracer_tpu_torch.parallel import render as prender
 from wc_path_tracer_tpu_torch.render import golden, sweep, wavefront
 from wc_path_tracer_tpu_torch.scene.camera import camera_matrices
+from wc_path_tracer_tpu_torch.scene.types import (MATERIAL_LAMBERTIAN,
+                                                  MATERIAL_METAL,
+                                                  SceneBuilder)
 
 
 def _need_card():
@@ -420,3 +426,102 @@ def test_pallas_frame_alive_mask_keeps_the_image():
     assert traversal.bvh_walk_kernel.launches == before + 8
     assert torch.isfinite(img_m).all()
     assert torch.equal(img_m, img_a)
+
+
+def lit_bunny_like(subdivisions, max_blas_tris=None):
+    """bunny_like_scene(subdivisions) plus one emissive sphere (default
+    scene's "Left" material) at (-2, 3, 1), radius 0.5, so NEE has a light;
+    a test fixture, as in tests/test_torch_nee.py."""
+    b = SceneBuilder()
+    body = b.add_material(MATERIAL_LAMBERTIAN, albedo=(0.65, 0.6, 0.5))
+    ground = b.add_material(MATERIAL_METAL, albedo=(0.6, 0.6, 0.6),
+                            roughness=0.9)
+    v, idx = bumpy_sphere(subdivisions)
+    v[:, 1] += 1.0
+    b.add_mesh(v, idx, tri_material=body, max_blas_tris=max_blas_tris)
+    b.add_sphere((0.0, -100.0, 0.0), 100.0, ground)
+    lamp = b.add_material(MATERIAL_METAL, emission=(1.6, 1.6, 1.6),
+                          emission_strength=1.0)
+    b.add_sphere((-2.0, 3.0, 1.0), 0.5, lamp)
+    return b.build("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["mt", "mxu"])
+def test_shadow_query_kernel_matches_plain_twin(variant):
+    """NEE's shadow query: the sweep bounded at a finite max_dist on most
+    lanes, -inf (disabled) and 0 on others; kernel and twin bit for bit,
+    and the any-hit flags equal the brute any-hit's."""
+    _need_card()
+    scene, _ = bunny_like_scene(3, device="cuda")
+    cfg = RenderConfig(cluster_kernel=variant)
+    tables = sweep.build_tables(scene.mesh, cfg)
+    o, d, _ = _rays(3000, 4, "cuda")
+    maxd = torch.full((3000,), 2.5, device="cuda")
+    maxd[::5] = -cluster.KINF
+    maxd[1::7] = 0.0
+    k, p, vk, vp = _sweep_both(o, d, maxd, tables, 512)
+    assert torch.equal(k, p) and torch.equal(vk, vp)
+    occ = sweep.occluded_sweep(scene, o, d, maxd, cfg)
+    assert torch.equal(occ, golden.occluded_brute(scene, o, d, maxd, cfg))
+    assert 0 < int(occ.sum()) < 3000 and not bool(occ[::5].any())
+
+
+def _nee_grads(scene, mats, cfg, make):
+    """Bench loss + vertex grads of one NEE frame through ``make`` (scene,
+    cfg) -> intersect_fn, under deterministic algorithms -> (image, loss,
+    grads, ops without a deterministic form)."""
+    trainable = prender.BENCH_TRAINABLE + ("vertices",)
+    target = torch.zeros((cfg.height, cfg.width, 3), device="cuda")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            loss, grads = prender.scene_loss_grad(cfg, trainable, make)(
+                scene, mats, 2, target)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    with torch.no_grad():
+        img = golden.render_frame(scene, mats, cfg, 2,
+                                  intersect_fn=make(scene, cfg))
+    return img, loss, grads, [str(w.message) for w in caught
+                              if "deterministic" in str(w.message)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["B1", "B2", "B3"])
+def test_nee_grads_kernel_equal_plain_twin(path, monkeypatch):
+    """A 32 x 32 NEE+MIS frame of the lit bunny through each kernel and
+    through its twin: the image and loss bitwise, the grads bitwise under
+    deterministic algorithms (within 1e-6 of each leaf's largest |g| where
+    PyTorch names an op without a deterministic form)."""
+    _need_card()
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    scene = lit_bunny_like(3, max_blas_tris=256 if path == "B3" else None)
+    mats = camera_matrices(bunny_like_scene(1, device="cuda")[1], 1.0)
+    cfg = RenderConfig(width=32, height=32, max_bounces=2, use_nee=True,
+                       mis=True, cluster_kernel="mxu" if path == "B2"
+                       else "mt")
+
+    def make(plain):
+        if path == "B3":
+            walk = traversal.bvh_walk_plain if plain else None
+            return lambda s, c: wavefront.make_intersect_fn_pallas(s, walk)
+        twin = (cluster.cluster_sweep_mxu_plain if path == "B2"
+                else cluster.cluster_sweep_plain)
+        return lambda s, c: sweep.make_intersect_fn(
+            s, c, block_fn=twin if plain else None)
+
+    ik, lk, gk, nk = _nee_grads(scene, mats, cfg, make(False))
+    ip, lp, gp, np_ = _nee_grads(scene, mats, cfg, make(True))
+    assert torch.isfinite(ik).all() and float(lk) > 0.0
+    assert torch.equal(ik, ip) and torch.equal(lk, lp)
+    for key in gk:
+        assert torch.isfinite(gk[key]).all(), key
+        if nk or np_:
+            scale = float(gp[key].abs().max())
+            assert float((gk[key] - gp[key]).abs().max()) <= 1e-6 * scale, \
+                (key, nk + np_)
+        else:
+            assert torch.equal(gk[key], gp[key]), key
+

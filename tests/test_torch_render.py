@@ -176,7 +176,7 @@ def test_render_step_accumulates_running_mean():
     torch.testing.assert_close(img, 0.5 * f0 + 0.5 * f1)
 
 
-@pytest.mark.parametrize("option", ["use_nee", "compact", "edge_grads"])
+@pytest.mark.parametrize("option", ["compact", "edge_grads"])
 def test_unported_options_raise(option):
     _, _, tscene, tm = _case("bunny")
     cfg = RenderConfig(**CFG)

@@ -14,10 +14,12 @@ import pytest
 import torch
 
 import wc_path_tracer_tpu.models.builtin as jbuiltin
+import wc_path_tracer_tpu.models.gltf as jgltf
+import wc_path_tracer_tpu.models.obj as jobj
 import wc_path_tracer_tpu.models.procedural as jproc
 from wc_path_tracer_tpu.scene import camera as jcamera
 
-from wc_path_tracer_tpu_torch.models import builtin, procedural
+from wc_path_tracer_tpu_torch.models import builtin, gltf, obj, procedural
 from wc_path_tracer_tpu_torch.scene import camera, types
 
 torch.set_num_threads(2)
@@ -57,7 +59,38 @@ SCENES = {
                     lambda: procedural.bunny_like_scene(2, device="cpu")),
     "bunny_gltf": (lambda: jproc.bunny_gltf_scene(),
                    lambda: procedural.bunny_gltf_scene(device="cpu")),
+    "default": (lambda: (jbuiltin.default_scene(), jbuiltin.default_camera()),
+                lambda: (builtin.default_scene(device="cpu"),
+                         builtin.default_camera(device="cpu"))),
+    "default_true_dielectric": (
+        lambda: (jbuiltin.default_scene(true_dielectric=True),
+                 jbuiltin.default_camera()),
+        lambda: (builtin.default_scene(true_dielectric=True, device="cpu"),
+                 builtin.default_camera(device="cpu"))),
+    "single_triangle": (lambda: jbuiltin.single_triangle_scene(),
+                        lambda: builtin.single_triangle_scene(device="cpu")),
+    "full_bsdf": (lambda: jbuiltin.full_bsdf_scene(),
+                  lambda: builtin.full_bsdf_scene(device="cpu")),
+    "gltf_scene": (lambda: jgltf.gltf_scene(procedural.BUNNY_GLB),
+                   lambda: gltf.gltf_scene(procedural.BUNNY_GLB,
+                                           device="cpu")),
 }
+
+# a quad, a pentagon (fan-triangulated) and a triangle with missing
+# attribute indices, over shared and out-of-range vertex triples
+OBJ_TEXT = """# test mesh
+v 0 0 0
+v 1 0 0
+v 1 1 0
+v 0 1 0
+v 0.5 1.5 0.2
+vt 0 0
+vt 1 0
+vn 0 0 1
+f 1/1/1 2/2/1 3//1 4//1
+f 1 2 3 4 5
+f 2//1 3/2 9/9/9
+"""
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -71,6 +104,34 @@ def test_scene_leaves_bit_exact(name):
     # the bridge: the JAX scene's leaves carried into the port unchanged
     bridged = types.scene_from_numpy(want, jscene.mesh.max_leaf_tris, "cpu")
     assert_leaves_equal(torch_leaves(bridged), want)
+    for f in ("position", "yaw", "pitch", "fov"):
+        np.testing.assert_array_equal(getattr(tcam, f).numpy(),
+                                      np.asarray(getattr(jcam, f)))
+
+
+def test_obj_parser_matches_jax(tmp_path):
+    path = tmp_path / "mesh.obj"
+    path.write_text(OBJ_TEXT)
+    for got, want in ((obj.parse_obj(OBJ_TEXT, from_text=True),
+                       jobj.parse_obj(OBJ_TEXT, from_text=True)),
+                      (obj.load_obj(str(path)), jobj.parse_obj(str(path)))):
+        for f in ("vertices", "normals", "uvs", "indices"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+            assert getattr(got, f).dtype == getattr(want, f).dtype
+    assert len(got.indices) == 3 * (2 + 3 + 1)
+
+
+def test_obj_scenes_match_jax(tmp_path):
+    """default_scene with an OBJ mesh and mesh_scene, leaf for leaf."""
+    path = str(tmp_path / "mesh.obj")
+    (tmp_path / "mesh.obj").write_text(OBJ_TEXT)
+    js = jbuiltin.default_scene(mesh_path=path)
+    ts = builtin.default_scene(mesh_path=path, device="cpu")
+    assert_leaves_equal(torch_leaves(ts), jax_leaves(js))
+    (js, jcam), (ts, tcam) = (jbuiltin.mesh_scene(path, scale=2.0),
+                              builtin.mesh_scene(path, scale=2.0,
+                                                 device="cpu"))
+    assert_leaves_equal(torch_leaves(ts), jax_leaves(js))
     for f in ("position", "yaw", "pitch", "fov"):
         np.testing.assert_array_equal(getattr(tcam, f).numpy(),
                                       np.asarray(getattr(jcam, f)))
@@ -147,6 +208,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     lambda: builtin.cornell_box_scene(),
     lambda: procedural.bunny_like_scene(1),
     lambda: types.SceneBuilder().build(),
+    lambda: builtin.default_scene(),
+    lambda: builtin.default_camera(),
+    lambda: builtin.full_bsdf_scene(),
     lambda: camera.Camera.create(),
     lambda: camera.matrices_from_numpy(np.eye(4), np.eye(4), np.zeros(3)),
 ])

@@ -12,8 +12,8 @@ pbrMetallicRoughness materials mapped onto this framework's material model:
 - emissiveFactor -> emission with strength 1
 
 No textures (factors only), no animation/skinning, no sparse accessors.
-A copy of the JAX package's parser (``parse_gltf`` only); the scenes that
-use it are built in models/procedural.py.
+A copy of the JAX package's parser and ``gltf_scene``; the bunny scenes
+that use the parser are built in models/procedural.py.
 """
 
 from __future__ import annotations
@@ -25,6 +25,11 @@ import os
 import struct
 
 import numpy as np
+
+from wc_path_tracer_tpu_torch.scene.camera import Camera
+from wc_path_tracer_tpu_torch.scene.types import (
+    MATERIAL_GGX, MATERIAL_LAMBERTIAN, SceneBuilder)
+from wc_path_tracer_tpu_torch.utils.device import resolve_device
 
 _COMPONENT_DTYPES = {
     5120: np.int8, 5121: np.uint8, 5122: np.int16,
@@ -188,3 +193,36 @@ def parse_gltf(path: str) -> GltfModel:
 
     return GltfModel(meshes=meshes, materials=materials)
 
+
+def gltf_scene(path: str, device=None):
+    """A renderable (Scene, Camera) from a glTF file: its meshes with their
+    materials, and a camera framing their bounds."""
+    dev = resolve_device(device)
+    model = parse_gltf(path)
+    b = SceneBuilder()
+    mat_ids = []
+    for m in model.materials:
+        if m["metallic"] < 0.05 and m["roughness"] > 0.9:
+            mat_ids.append(b.add_material(
+                MATERIAL_LAMBERTIAN, albedo=m["albedo"],
+                emission=m["emission"],
+                emission_strength=1.0 if any(m["emission"]) else 0.0))
+        else:
+            mat_ids.append(b.add_material(
+                MATERIAL_GGX, albedo=m["albedo"], roughness=m["roughness"],
+                metallic=m["metallic"], emission=m["emission"],
+                emission_strength=1.0 if any(m["emission"]) else 0.0))
+
+    all_pts = []
+    for mesh in model.meshes:
+        b.add_mesh(mesh.vertices, mesh.indices, normals=mesh.normals,
+                   uvs=mesh.uvs, tri_material=mat_ids[mesh.material])
+        all_pts.append(mesh.vertices)
+    pts = np.concatenate(all_pts) if all_pts else np.zeros((1, 3), np.float32)
+    center = (pts.min(0) + pts.max(0)) / 2
+    extent = float(np.abs(pts - center).max()) or 1.0
+    cam = Camera.create(
+        position=(center[0], center[1] + 0.5 * extent,
+                  center[2] + 2.5 * extent),
+        yaw=-90.0, pitch=-10.0, fov=50.0, device=dev)
+    return b.build(dev), cam

@@ -23,6 +23,24 @@ from wc_path_tracer_tpu_torch.render import golden, sweep, wavefront
 BRUTE_FORCE_MAX_TRIS = 256
 
 
+def get_intersect_fn(name: str, scene, cfg):
+    """The closest-hit backend of renderer ``name`` for golden's transport
+    (``golden.render_rows(..., intersect_fn=...)``), built for this scene:
+    the sweep's tables and attached vertex slabs come from ``scene`` as
+    given, so parameters applied to it reach the re-shade."""
+    if name == "auto":
+        name = _auto(scene)
+    if name == "golden":
+        return golden.intersect_scene_brute
+    if name == "sweep":
+        return sweep.make_intersect_fn(scene, cfg)
+    if name == "wavefront":
+        return wavefront.intersect_scene_bvh
+    if name == "pallas":
+        return wavefront.intersect_scene_pallas
+    raise ValueError(f"unknown renderer {name!r}")
+
+
 def get_render_frame(name: str, scene, cfg):
     if name == "golden":
         return golden.render_frame
@@ -34,7 +52,12 @@ def get_render_frame(name: str, scene, cfg):
         return wavefront.render_frame_pallas
     if name != "auto":
         raise ValueError(f"unknown renderer {name!r}")
+    return sweep.render_frame if _auto(scene) == "sweep" \
+        else golden.render_frame
+
+
+def _auto(scene) -> str:
+    """"auto"'s choice: brute force up to BRUTE_FORCE_MAX_TRIS triangle
+    slots, the cluster sweep above."""
     n_tris = scene.mesh.indices.shape[0] // 3
-    if n_tris > BRUTE_FORCE_MAX_TRIS:
-        return sweep.render_frame
-    return golden.render_frame
+    return "sweep" if n_tris > BRUTE_FORCE_MAX_TRIS else "golden"

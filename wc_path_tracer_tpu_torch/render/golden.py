@@ -1,5 +1,5 @@
-"""Brute-force path tracer and the shared light transport (port of the forward
-subset of the JAX package's render/golden.py; reference: the megakernel
+"""Brute-force path tracer and the shared light transport (port of the JAX
+package's render/golden.py; reference: the megakernel
 src/shaders/pathTracer.comp).
 
 One tensor lane per ray; a Python loop over the ``max_bounces + 1`` bounce
@@ -13,8 +13,13 @@ per-thread streams (masked draws).
 Where the JAX package selected winners with one-hot matmuls (a TPU device),
 the port uses index gathers with an explicit first-min rule (``_first_min``:
 the minimum, then the lowest index among equal values), never relying on
-``argmin``'s tie order.  Not ported yet: next-event estimation (``use_nee``,
-ROADMAP A5), compaction (``compact``, A9) and the silhouette estimator
+``argmin``'s tie order; small tables (materials, spheres, the brute path's
+triangle slots) are gathered by ``take_rows``, whose backward is the JAX
+package's one-hot matmul.  Next-event estimation (``use_nee``) connects one
+light per lane, picked by area x luminance, and under ``mis`` weights both
+strategies by the balance heuristic; its shadow query is the backend's
+``occlusion_fn`` where it registers one, else its full closest hit.  Not
+ported yet: compaction (``compact``, A9) and the silhouette estimator
 (``edge_grads``, A10) — each raises ``NotImplementedError``.
 """
 
@@ -36,6 +41,10 @@ from wc_path_tracer_tpu_torch.utils.config import RenderConfig
 
 BIAS = float(np.float32(1e-5))    # constants.glsl bias
 KINF = ix.KINFINITY
+# f32 constants rounded as the JAX package rounds them (F32(2.0) * pi etc.)
+_TWO_PI = float(np.float32(2.0) * np.float32(np.pi))
+_FOUR_PI = float(np.float32(4.0) * np.float32(np.pi))
+_LUM = tuple(float(np.float32(w)) for w in (0.2126, 0.7152, 0.0722))
 
 
 @dataclasses.dataclass
@@ -48,6 +57,35 @@ class HitRecord:
     hit: torch.Tensor       # (R,) bool
     front: torch.Tensor     # (R,) bool
     material: torch.Tensor  # (R,) int32
+
+
+class _TakeRows(torch.autograd.Function):
+    """``table[idx]`` whose backward is one one-hot matmul."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        onehot = idx[None, :] == torch.arange(ctx.rows, device=idx.device)[
+            :, None]
+        g = onehot.double() @ grad.reshape(grad.shape[0], -1).double()
+        return g.to(grad.dtype).view((ctx.rows,) + grad.shape[1:]), None
+
+
+def take_rows(table, idx):
+    """Rows of a small table (materials, spheres, the brute path's triangle
+    slots) at per-lane indices.  The forward is an exact index gather; the
+    backward is ``onehot(idx)^T @ grad`` in float64 (deterministic, and
+    independent of the TF32 setting), where the index gather's own backward,
+    an accumulating index_put, serializes the many lanes that share a row
+    and took ~95 % of a 1024^2 fwd+bwd step on the card.  The JAX package
+    gathers these tables by one-hot matmuls for the same reason."""
+    return _TakeRows.apply(table, idx)
 
 
 def _first_min(t):
@@ -88,7 +126,8 @@ def sphere_closest(scene: Scene, origin, direction, cfg: RenderConfig):
         t_cand = torch.where(near > 0.0, near, far)
     t_sph = torch.where(s_live & (t_cand > 0.0), t_cand, KINF)
     t_s, idx = _first_min(t_sph)
-    return t_s, sph.position[idx], sph.radius[idx], sph.material[idx]
+    pr = take_rows(torch.cat([sph.position, sph.radius[:, None]], 1), idx)
+    return t_s, pr[:, 0:3], pr[:, 3], sph.material[idx]
 
 
 def resolve_hit(origin, direction, cfg: RenderConfig, t_s, sph_center,
@@ -152,9 +191,49 @@ def intersect_scene_brute(scene: Scene, origin, direction,
                                        c_all.detach())                # (R, T)
     t_tri_all = torch.where(t_hit & _live_triangle_mask(scene), t_t, KINF)
     t_tri, idx = _first_min(t_tri_all)
+    abc = take_rows(torch.cat([a_all, b_all, c_all], 1), idx)
     return resolve_hit(origin, direction, cfg, t_s, sph_center, sph_radius,
-                       sph_material, t_tri, t_tri < KINF, a_all[idx],
-                       b_all[idx], c_all[idx], mesh.tri_material[idx])
+                       sph_material, t_tri, t_tri < KINF, abc[:, 0:3],
+                       abc[:, 3:6], abc[:, 6:9], mesh.tri_material[idx])
+
+
+def sphere_occluded(scene: Scene, origin, direction, max_dist,
+                    cfg: RenderConfig):
+    """(R,) bool: a live sphere root in (0, max_dist), with the closest-hit
+    query's root rule (near root only under quirk 1).  Detached inputs."""
+    sph = scene.spheres
+    near, far = ix.ray_sphere_sweep(origin, direction, sph.position.detach(),
+                                    sph.radius.detach())
+    s_live = torch.arange(sph.capacity, device=near.device) < sph.count
+    if cfg.sphere_near_root_only:
+        t_cand = near
+    else:
+        t_cand = torch.where(near > 0.0, near, far)
+    return torch.any(s_live & (t_cand > 0.0) & (t_cand < max_dist[:, None]),
+                     dim=-1)
+
+
+@torch.no_grad()
+def occluded_brute(scene: Scene, origin, direction, max_dist,
+                   cfg: RenderConfig):
+    """Boolean any-hit shadow query: does any primitive block ``origin +
+    t*direction`` for t in (0, max_dist)?  Visibility carries no gradient,
+    so nothing is re-shaded; the selection rules are intersect_scene_brute's
+    (near-root-only spheres, live masks), so ``occluded == (closest_hit.t <
+    max_dist)`` bit for bit."""
+    origin, direction = origin.detach(), direction.detach()
+    max_dist = max_dist.detach()
+    s_occ = sphere_occluded(scene, origin, direction, max_dist, cfg)
+    a, b, c = (x.detach() for x in triangle_vertices(scene.mesh))
+    t_t, t_hit = ix.ray_triangle_sweep(origin, direction, a, b, c)
+    t_occ = torch.any(t_hit & _live_triangle_mask(scene)
+                      & (t_t < max_dist[:, None]), dim=-1)
+    return s_occ | t_occ
+
+
+# the brute backend's registered any-hit (sample_direct_light's
+# ``occlusion_fn`` protocol, shared by the sweep backend)
+intersect_scene_brute.occlusion_fn = occluded_brute
 
 
 def _fresnel_reflectance(in_dir, normal, ior_a, ior_b):
@@ -187,19 +266,179 @@ def sky_color(direction, cfg: RenderConfig):
     return blue * (1.0 - a) + a
 
 
+def _at_least(x, lo):
+    """max(x, lo) as jnp.maximum: NaN-propagating, ties split the gradient."""
+    return torch.maximum(x, torch.full_like(x, lo))
+
+
+def _luminance(rgb):
+    return (_LUM[0] * rgb[..., 0] + _LUM[1] * rgb[..., 1]
+            + _LUM[2] * rgb[..., 2])
+
+
+def _material_luminance(materials, mid):
+    """(emission x strength (R, 3), luminance x strength (R,)) of the
+    materials ``mid``: an emitter's radiance and its light-pick weight per
+    unit area."""
+    es = take_rows(torch.cat([materials.emission,
+                              materials.emission_strength[:, None]], 1), mid)
+    emission, strength = es[:, 0:3], es[:, 3]
+    return emission * strength[:, None], _luminance(emission) * strength
+
+
+def _light_tables(scene: Scene):
+    """Per-primitive light-sampling tables shared by NEE and the MIS
+    emission weight -> (weights (S+T,), s_lum, t_lum, tri, a, b, c).
+
+    weights = area x luminance per live emissive primitive, so the pick pdf
+    in area measure is lum / total (the areas cancel) and the BSDF-side
+    light pdf of hitting an emitter needs only its luminance and ``total =
+    sum(weights)``.  Triangle areas use safe_sqrt: padded slots are
+    degenerate, and a norm's gradient at 0 would poison the vertex grads
+    even though their weights are masked out."""
+    sph, mesh = scene.spheres, scene.mesh
+    s_live = torch.arange(sph.capacity, device=sph.radius.device) < sph.count
+    s_lum = _material_luminance(scene.materials, sph.material.long())[1]
+    s_area = _FOUR_PI * sph.radius * sph.radius
+    s_w = torch.where(s_live & (s_lum > 0.0), s_area * s_lum, 0.0)
+
+    voff = mesh.draw_vertex_offset[mesh.tri_draw.clamp_min(0)]
+    tri = mesh.indices.view(-1, 3) + voff[:, None]        # bank-global ids
+    a, b, c = (mesh.vertices[tri[:, k]] for k in range(3))
+    t_lum = _material_luminance(scene.materials, mesh.tri_material.long())[1]
+    cr = ix.cross(b - a, c - a)
+    t_area = 0.5 * ix.safe_sqrt(ix.dot3(cr, cr))
+    t_w = torch.where(_live_triangle_mask(scene) & (t_lum > 0.0),
+                      t_area * t_lum, 0.0)
+    return torch.cat([s_w, t_w]), s_lum, t_lum, tri, a, b, c
+
+
+def sample_direct_light(scene: Scene, rec: HitRecord, seed, mask,
+                        intersect_fn, cfg: RenderConfig):
+    """Next-event estimation: one area-sampled light connection per lane.
+
+    The light set is every live emissive sphere and triangle, picked by
+    area x luminance.  Returns (direct radiance without the BRDF and the
+    throughput (R, 3), wi (R, 3), solid-angle pdf (R,), seed); wi and the
+    pdf feed the MIS balance weight.  Draws per lane where ``mask``: 1
+    light pick, then 2 point draws, all masked, so other lanes keep their
+    PCG streams.
+    """
+    sph, mesh, mats = scene.spheres, scene.mesh, scene.materials
+    weights, _, _, tri, a, b, c = _light_tables(scene)
+    cum = torch.cumsum(weights, dim=0)
+    total_w = cum[-1]
+    has_lights = total_w > 0.0
+
+    u_pick, seed = rng.rand_masked(seed, mask)
+    u1, seed = rng.rand_masked(seed, mask)
+    u2, seed = rng.rand_masked(seed, mask)
+
+    pick = torch.searchsorted(cum.detach(), (u_pick * total_w).detach(),
+                              right=True)
+    pick = pick.clamp(0, weights.shape[0] - 1)
+    is_sphere_light = pick < sph.capacity
+    s_idx = pick.clamp(0, sph.capacity - 1)
+    t_idx = (pick - sph.capacity).clamp(0, tri.shape[0] - 1)
+
+    # sphere: a uniform point on the surface
+    z = 1.0 - 2.0 * u1
+    r_xy = ix.safe_sqrt(1.0 - z * z)
+    phi = _TWO_PI * u2
+    n_sph = torch.stack([r_xy * torch.cos(phi), r_xy * torch.sin(phi), z], -1)
+    pr = take_rows(torch.cat([sph.position, sph.radius[:, None]], 1), s_idx)
+    p_sph = pr[:, 0:3] + pr[:, 3:4] * n_sph
+
+    # triangle: uniform barycentrics by the square-root trick
+    su = torch.sqrt(torch.clamp(u1, 1e-12, 1.0))
+    b0 = 1.0 - su
+    b1 = u2 * su
+    # index_select: its backward (index_add_) takes the many lanes that share
+    # a row (every sphere pick clamps to row 0) without serializing them
+    abc = torch.cat([a, b, c], 1).index_select(0, t_idx)
+    ta, tb, tc = abc[:, 0:3], abc[:, 3:6], abc[:, 6:9]
+    p_tri = ta * b0[:, None] + tb * b1[:, None] \
+        + tc * (1.0 - b0 - b1)[:, None]
+    n_tri = ix.normalize(ix.cross(tb - ta, tc - ta), eps=1e-20)
+
+    p_light = torch.where(is_sphere_light[:, None], p_sph, p_tri)
+    n_light = torch.where(is_sphere_light[:, None], n_sph, n_tri)
+    light_mat = torch.where(is_sphere_light, sph.material[s_idx],
+                            mesh.tri_material[t_idx]).long()
+    # the picked light's radiance, and its luminance (= s_lum[s_idx] or
+    # t_lum[t_idx], the same floats, gathered per lane by material)
+    L_e, lum_pick = _material_luminance(mats, light_mat)
+
+    # geometric term and shadow ray; safe_sqrt keeps coincident points
+    # (masked lanes, degenerate picks) from injecting NaN gradients
+    to_light = p_light - rec.p
+    dist = ix.safe_sqrt(ix.dot3(to_light, to_light))
+    safe_dist = _at_least(dist, 1e-6)
+    wi = to_light / safe_dist[:, None]
+    cos_surf = ix.dot3(rec.normal, wi)
+    cos_light_raw = ix.dot3(n_light, -wi)
+    # triangles emit on both sides (the tracer flips normals toward the
+    # ray); spheres emit outward only
+    cos_light = torch.where(is_sphere_light, cos_light_raw,
+                            torch.abs(cos_light_raw))
+
+    shadow_o = rec.p + rec.normal * BIAS
+    thresh = dist - 1e-3 * safe_dist
+    enabled = mask & has_lights
+    occ_fn = getattr(intersect_fn, "occlusion_fn", None)
+    if occ_fn is not None:
+        # disabled lanes (non-NEE lobes, dead rays, lightless scenes) get a
+        # -inf bound: ``ok`` masks them, and the cluster sweep culls them
+        visible = ~occ_fn(scene, shadow_o, wi,
+                          torch.where(enabled, thresh, -KINF), cfg)
+    else:
+        # the full closest hit; a backend that skips dead lanes gets
+        # ``enabled`` as its alive mask (``ok`` masks every other lane)
+        with torch.no_grad():
+            if getattr(intersect_fn, "accepts_alive", False):
+                shadow = intersect_fn(scene, shadow_o, wi, cfg, alive=enabled)
+            else:
+                shadow = intersect_fn(scene, shadow_o, wi, cfg)
+        visible = (~shadow.hit) | (shadow.t >= thresh)
+
+    # pdf_area = (w_pick / total) / area_pick = lum_pick / total
+    pdf_a = _at_least(lum_pick / _at_least(total_w, 1e-20), 1e-20)
+    G = _at_least(cos_surf, 0.0) * _at_least(cos_light, 0.0) \
+        / (safe_dist * safe_dist)
+    contrib = L_e * (G / pdf_a)[:, None]
+    ok = enabled & visible & (cos_surf > 0.0) & (cos_light > 0.0) \
+        & (lum_pick > 0.0)
+    # solid-angle pdf of this light sample: pdf_area * dist^2 / cos_light
+    pdf_sa = pdf_a * (safe_dist * safe_dist) \
+        / _at_least(_at_least(cos_light, 0.0), 1e-6)
+    return (torch.where(ok[:, None], contrib, 0.0), wi,
+            torch.where(ok, pdf_sa, 1.0), seed)
+
+
 def _gather_material(materials, mid):
-    """Per-ray material fields by index gather (pathTracer.comp:251)."""
+    """Per-ray material fields (pathTracer.comp:251): one gather of the
+    column-stacked (M, 14) float table (``take_rows``) and the type ids."""
     mid = mid.long()
+    g = take_rows(torch.cat([
+        materials.albedo,                          # 0:3
+        materials.emission,                        # 3:6
+        materials.emission_strength[:, None],      # 6
+        materials.roughness[:, None],              # 7
+        materials.metallic[:, None],               # 8
+        materials.absorption,                      # 9:12
+        materials.absorption_strength[:, None],    # 12
+        materials.ior[:, None],                    # 13
+    ], 1), mid)
     return dict(
         mtype=materials.mtype[mid],
-        albedo=materials.albedo[mid],
-        emission=materials.emission[mid],
-        emission_strength=materials.emission_strength[mid],
-        roughness=materials.roughness[mid],
-        metallic=materials.metallic[mid],
-        absorption=materials.absorption[mid],
-        absorption_strength=materials.absorption_strength[mid],
-        ior=materials.ior[mid],
+        albedo=g[:, 0:3],
+        emission=g[:, 3:6],
+        emission_strength=g[:, 6],
+        roughness=g[:, 7],
+        metallic=g[:, 8],
+        absorption=g[:, 9:12],
+        absorption_strength=g[:, 12],
+        ior=g[:, 13],
     )
 
 
@@ -213,18 +452,17 @@ class PathState:
     trans: torch.Tensor   # (R, 3) path throughput
     seed: torch.Tensor    # (R,) int64 PCG state in [0, 2^32)
     alive: torch.Tensor   # (R,) bool
+    pdf_prev: torch.Tensor  # (R,) BSDF pdf of the last scatter under NEE
+    #                         (0 = the next hit's emission counts in full)
     bounce: int = 0
 
 
 def _bounce_segment(scene: Scene, cfg: RenderConfig, intersect_fn,
                     s: PathState) -> PathState:
     """One bounce segment of TraceRay (pathTracer.comp:241-284) over a lane
-    batch: closest hit, emission/sky accumulation, BSDF scatter, Russian
-    roulette.  The masked draws come in the JAX package's order, so every
-    lane's PCG stream matches the reference's per-thread stream."""
-    if cfg.use_nee:
-        raise NotImplementedError(
-            "use_nee (next-event estimation) is not ported yet: ROADMAP A5")
+    batch: closest hit, emission/NEE/sky accumulation, BSDF scatter,
+    Russian roulette.  The masked draws come in the JAX package's order, so
+    every lane's PCG stream matches the reference's per-thread stream."""
     o, d, trans, seed = s.o, s.d, s.trans, s.seed
     # terminated lanes keep stale (o, d); a backend that can skip them
     # (the cluster sweep) declares ``accepts_alive`` and gets the mask
@@ -244,10 +482,52 @@ def _bounce_segment(scene: Scene, cfg: RenderConfig, intersect_fn,
     is_lambert = m["mtype"] == MATERIAL_LAMBERTIAN
     is_ggx = m["mtype"] == MATERIAL_GGX
 
-    # emission (:253)
-    total = total + torch.where(
-        live[:, None],
-        m["emission"] * m["emission_strength"][:, None] * trans, 0.0)
+    # emission (:253).  Under NEE an emitter reached by BSDF sampling from
+    # a light-sampled lobe is weighted by the balance heuristic (pdf_prev:
+    # the previous scatter's BSDF pdf, 0 = full emission); with mis off it
+    # is skipped after an NEE bounce
+    emitted = m["emission"] * m["emission_strength"][:, None] * trans
+    if cfg.use_nee:
+        if cfg.mis:
+            # the light pdf of having sampled this point instead, in solid
+            # angle at the previous vertex.  The weight stays attached; the
+            # double where keeps 0/0 out of reverse mode where pdf_prev = 0
+            total_w = _at_least(torch.sum(_light_tables(scene)[0]), 1e-20)
+            lum_hit = _luminance(m["emission"]) * m["emission_strength"]
+            cos_hit = _at_least(-ix.dot3(rec.normal, d), 1e-6)
+            pdf_l_sa = (lum_hit / total_w) * rec.t * rec.t / cos_hit
+            use_ratio = s.pdf_prev > 0.0
+            den_b = torch.where(use_ratio, s.pdf_prev + pdf_l_sa, 1.0)
+            w_b = torch.where(use_ratio, s.pdf_prev / den_b, 1.0)
+        else:
+            w_b = torch.where(s.pdf_prev > 0.0, 0.0, 1.0)
+        emitted = emitted * w_b[:, None]
+    total = total + torch.where(live[:, None], emitted, 0.0)
+
+    # NEE: a light connection for the sampled lobes (Lambertian, and GGX
+    # under MIS), 3 masked draws.  METAL's fuzzy lobe and DIELECTRIC have
+    # no closed-form pdf: they count as delta lobes, their emitter hits keep
+    # full weight
+    if cfg.use_nee:
+        nee_mask = live & ((is_lambert | is_ggx) if cfg.mis else is_lambert)
+        direct, wi_l, pdf_l, seed = sample_direct_light(
+            scene, rec, seed, nee_mask, intersect_fn, cfg)
+        f = bsdf.lambert_brdf_over_pi(m["albedo"])
+        if cfg.mis:
+            f_ggx = bsdf.ggx_eval(rec.normal, -d, wi_l, m["albedo"],
+                                  m["roughness"], m["metallic"])
+            f = torch.where(is_ggx[:, None], f_ggx, f)
+            pdf_b_l = torch.where(
+                is_ggx, bsdf.ggx_pdf(rec.normal, -d, wi_l, m["roughness"]),
+                bsdf.lambert_pdf(rec.normal, wi_l))
+            # the same guard: a masked GGX lane's pdf_b_l may be garbage
+            ok_l = pdf_l > 1e-12
+            den_l = torch.where(ok_l, pdf_l + pdf_b_l, 1.0)
+            w_l = torch.where(ok_l, pdf_l / den_l, 0.0)
+            direct = direct * f * trans * w_l[:, None]
+        else:
+            direct = direct * f * trans
+        total = total + torch.where(nee_mask[:, None], direct, 0.0)
 
     # dielectric pre-draw (:268-273): the short-circuit `||` skips the draw
     # under total internal reflection
@@ -316,10 +596,23 @@ def _bounce_segment(scene: Scene, cfg: RenderConfig, intersect_fn,
         keep = rr_mask & ~killed
         trans = torch.where(keep[:, None], trans / p_survive[:, None], trans)
 
+    # the pdf of this scatter, for the next hit's MIS emission weight (only
+    # where NEE handled this bounce's direct light)
+    pdf_prev = s.pdf_prev
+    if cfg.use_nee:
+        if cfg.mis:
+            pdf_scatter = torch.where(
+                is_ggx, bsdf.ggx_pdf(rec.normal, -d, new_d, m["roughness"]),
+                bsdf.lambert_pdf(rec.normal, new_d))
+            pdf_prev = torch.where(nee_mask & live,
+                                   _at_least(pdf_scatter, 1e-12), 0.0)
+        else:
+            pdf_prev = torch.where(nee_mask & live, 1.0, 0.0)
+
     return PathState(o=torch.where(live[:, None], new_o, o),
                      d=torch.where(live[:, None], new_d, d),
                      total=total, trans=trans, seed=seed, alive=live,
-                     bounce=s.bounce + 1)
+                     pdf_prev=pdf_prev, bounce=s.bounce + 1)
 
 
 def trace_rays(scene: Scene, origin, direction, seed, cfg: RenderConfig,
@@ -337,7 +630,8 @@ def trace_rays(scene: Scene, origin, direction, seed, cfg: RenderConfig,
     s = PathState(o=origin.expand_as(direction), d=direction, total=zeros,
                   trans=zeros + 1.0, seed=seed,
                   alive=torch.ones(direction.shape[0], dtype=torch.bool,
-                                   device=direction.device))
+                                   device=direction.device),
+                  pdf_prev=zeros[:, 0])
     for _ in range(cfg.max_bounces + 1):
         s = _bounce_segment(scene, cfg, intersect_fn, s)
     return s.total, s.seed

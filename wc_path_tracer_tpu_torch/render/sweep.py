@@ -11,8 +11,9 @@ exact cross-cluster t-ties.  ``cfg.cluster_kernel`` picks the block test:
 
 The search is detached; the re-shade fetches the winner's vertices by an
 index gather from the slot id in payload column 11 through the ATTACHED
-``cluster.vertex_slabs``, so vertex gradients can flow through it.  Not
-ported yet: ``occluded_sweep`` (NEE shadow rays, ROADMAP A5) and
+``cluster.vertex_slabs``, so vertex gradients can flow through it.  NEE's
+shadow rays go through ``occluded_sweep``: the same sweep bounded at the
+light's distance, with no re-shade.  Not ported yet:
 ``tri_edge_candidate_sweep`` (silhouettes, A10).
 """
 
@@ -176,20 +177,59 @@ def intersect_scene_sweep(scene: Scene, origin, direction, cfg: RenderConfig,
     if vslabs is None:
         vslabs = cluster.vertex_slabs(scene.mesh)
     slot = pay[:, 11].to(torch.int64).clamp_min(0)
-    coords = vslabs.reshape(9, -1)[:, slot]                  # (9, R) attached
+    # attached; index_select's backward (index_add_) does not serialize
+    # the lanes that share a slot
+    coords = vslabs.reshape(9, -1).index_select(1, slot)     # (9, R)
     return golden.resolve_hit(
         origin, direction, cfg, t_s, sph_center, sph_radius, sph_material,
         t_tri, tri_hit, coords[0:3].T, coords[3:6].T, coords[6:9].T,
         pay[:, 10].to(torch.int32))
 
 
+@torch.no_grad()
+def occluded_sweep(scene: Scene, origin, direction, max_dist,
+                   cfg: RenderConfig, tables=None, block_fn=None):
+    """Any-hit shadow query for NEE -> (R,) bool: spheres brute force, then
+    the cluster sweep bounded at ``max_dist`` (the bound doubles as the
+    early out: triangles past the light never win).  Lanes with a
+    non-positive bound can occlude nothing (the transport disables lanes
+    with -inf); they are inactive for the dynamic sort, so they gather in
+    blocks the kernel skips.  ``tables``/``block_fn`` as in
+    intersect_scene_sweep."""
+    origin, direction = origin.detach(), direction.detach()
+    max_dist = max_dist.detach()
+    s_occ = golden.sphere_occluded(scene, origin, direction, max_dist, cfg)
+    if tables is None:
+        tables = build_tables(scene.mesh, cfg)
+    tris, cmin, cmax, mat_tbl, variant = _unpack_tables(tables)
+    rb = cfg.ray_block or cluster.RAY_BLOCK
+    kw = dict(ray_block=rb, block_fn=block_fn, variant=variant,
+              mat_tbl=mat_tbl)
+    perm = _permuter(origin, direction, cfg, cmin, cmax,
+                     active=max_dist > 0.0, scene=scene)
+    if perm is None:
+        pay = cluster.cluster_sweep(origin, direction, max_dist, tris, cmin,
+                                    cmax, **kw)
+    else:
+        fwd, inv = perm
+        pay = inv(cluster.cluster_sweep(fwd(origin), fwd(direction),
+                                        fwd(max_dist), tris, cmin, cmax,
+                                        **kw))
+    return s_occ | (pay[:, 11] >= 0.0)
+
+
+intersect_scene_sweep.occlusion_fn = occluded_sweep
+intersect_scene_sweep.accepts_alive = True
+
+
 def make_intersect_fn(scene: Scene, cfg: RenderConfig | None = None,
                       block_fn=None):
     """intersect_fn with the cluster tables and vertex slabs built once per
-    frame and shared by every bounce.  ``block_fn`` overrides the block
-    sweep, e.g. ``cluster.cluster_sweep_plain`` (or, under
-    ``cluster_kernel="mxu"``, ``cluster.cluster_sweep_mxu_plain``) to render
-    through the plain twin on the card."""
+    frame and shared by every bounce's closest-hit and NEE shadow query.
+    ``block_fn`` overrides the block sweep of both, e.g.
+    ``cluster.cluster_sweep_plain`` (or, under ``cluster_kernel="mxu"``,
+    ``cluster.cluster_sweep_mxu_plain``) to render through the plain twin
+    on the card."""
     tables = build_tables(scene.mesh, cfg)
     vslabs = cluster.vertex_slabs(scene.mesh)
 
@@ -198,7 +238,12 @@ def make_intersect_fn(scene: Scene, cfg: RenderConfig | None = None,
                                      tables=tables, vslabs=vslabs,
                                      alive=alive, block_fn=block_fn)
 
+    def occlusion_fn(scene, origin, direction, max_dist, cfg):
+        return occluded_sweep(scene, origin, direction, max_dist, cfg,
+                              tables=tables, block_fn=block_fn)
+
     fn.accepts_alive = True
+    fn.occlusion_fn = occlusion_fn
     return fn
 
 

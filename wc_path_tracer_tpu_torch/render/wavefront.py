@@ -18,7 +18,10 @@ selection rules of the brute path.
 
 The walks are discrete searches on detached values and return the winner's
 first-index offset; gradients flow through the re-shade, which recovers the
-winner's vertices through ``mesh.tri_draw``.
+winner's vertices through ``mesh.tri_draw``.  Neither backend registers an
+``occlusion_fn`` (as in the JAX package), so NEE's shadow rays take the
+full closest hit: on "pallas" one more walk per bounce, of the lanes that
+sample a light only.
 """
 
 from __future__ import annotations
@@ -39,8 +42,10 @@ def _reshade(scene: Scene, origin, direction, cfg: RenderConfig, sphere,
     off = best_off.long().clamp_min(0)
     tri = off // 3
     voff = mesh.draw_vertex_offset[mesh.tri_draw[tri].clamp_min(0)].long()
-    a, b, c = (mesh.vertices[voff + mesh.indices[off + k].long()]
-               for k in range(3))
+    # index_select: its backward (index_add_) does not serialize the lanes
+    # that share a vertex
+    a, b, c = (mesh.vertices.index_select(
+        0, voff + mesh.indices[off + k].long()) for k in range(3))
     return golden.resolve_hit(origin, direction, cfg, *sphere, t_tri,
                               tri_hit, a, b, c, mesh.tri_material[tri])
 

@@ -178,6 +178,19 @@ class SceneBuilder:
             absorption_strength=absorption_strength, ior=ior))
         return len(self.materials) - 1
 
+    def set_metal(self, albedo, roughness, metallic=0.0) -> int:
+        """Reference SetMetal (src/PathTracingRenderer.jai:72-76)."""
+        return self.add_material(MATERIAL_METAL, albedo=albedo,
+                                 roughness=roughness, metallic=metallic)
+
+    def set_dielectric(self, color, roughness, ior) -> int:
+        """Reference SetDielectric, which does not set the type field
+        (src/PathTracingRenderer.jai:78-82, quirk §2.4(3)): the material
+        stays METAL.  add_material(MATERIAL_DIELECTRIC, ...) makes a real
+        dielectric."""
+        return self.add_material(MATERIAL_METAL, albedo=color,
+                                 roughness=roughness, ior=ior)
+
     def add_sphere(self, position, radius, material: int) -> int:
         self.spheres.append((position, radius, material))
         return len(self.spheres) - 1

@@ -5,12 +5,11 @@ so one config describes a render in either package.  Options whose code is
 not ported yet raise ``NotImplementedError`` where they are used, naming the
 ROADMAP item that ports them:
 
-- ``use_nee`` (render/golden.py ``_bounce_segment``; ROADMAP A5)
 - ``compact`` (render/golden.py ``trace_rays``; ROADMAP A9)
 - ``edge_grads`` (render/golden.py ``render_rows``; ROADMAP A10)
 
 ``row_chunks`` only changed how the JAX package batched a frame (its pixels
-are identical either way); the port always renders one band.  ``mis``,
+are identical either way); the port always renders one band.
 ``compact_*``, ``tonemap``, ``gamma`` and ``bloom*`` belong to code that is
 not ported yet and are not read.
 """
