@@ -436,7 +436,7 @@ def pallas_phase(smi, cfg, unsplit, ptxas):
           f"built in {tables.build_s * 1e3:.1f} ms (first walk of the bank), "
           f"on {smi}", flush=True)
     frame_fn = dispatch.get_render_frame("pallas", scene, cfg)
-    check(frame_fn is wavefront.render_frame_pallas,
+    check(frame_fn.backend == "pallas",
           "dispatch 'pallas' picks the BVH-walk kernel path")
     queries = []
 
@@ -875,18 +875,23 @@ def sweep_shadow_queries(smi, scene, mats, cfg):
             OPS_PER_PLANE_TEST if mxu else OPS_PER_TEST)
         bound_ms, bound_by = bound(ops, nbytes(*args) + nbytes(args[4]))
         ms = event_ms(lambda: kernel(*args), 20)
-        active = float((args[3][..., 6] > 0.0).float().mean())
+        lanes_on = args[3][..., 6] > 0.0
+        active = float(lanes_on.float().mean())
+        dead = ~lanes_on.any(dim=1)          # blocks with every lane disabled
         rec.update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
                    active_share=active,
-                   early_exit_trims=rec["visits"] < rec["nact"])
+                   early_exit_trims=rec["visits"] < rec["nact"],
+                   dead_blocks=int(dead.sum()),
+                   dead_block_visits=int(vk[dead].sum()))
         out.append(rec)
         trim = ("the early exit trims" if rec["early_exit_trims"]
                 else "no list trimmed")
         print(f"[shadow] {name} bounce {q}: {ms:.4f} ms per launch, bound "
               f"{bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.1f}x; active "
               f"lanes {active:.4f}; visits {rec['visits']} of nact "
-              f"{rec['nact']} ({trim}); {rec['hits']} occluded, on {smi}",
-              flush=True)
+              f"{rec['nact']} ({trim}); {rec['dead_blocks']} of {RB} blocks "
+              f"all disabled, visiting {rec['dead_block_visits']}; "
+              f"{rec['hits']} occluded, on {smi}", flush=True)
     return out
 
 
@@ -1250,7 +1255,7 @@ def main() -> int:
     tables = cluster.build_cluster_tables(scene.mesh)
     cfg = RenderConfig(**BUNNY)
     frame_fn = dispatch.get_render_frame("auto", scene, cfg)
-    check(frame_fn is sweep.render_frame,
+    check(frame_fn.backend == "sweep",
           "dispatch 'auto' picks the cluster sweep for the bunny "
           f"({scene.mesh.triangle_capacity} triangle slots)")
     queries = []
@@ -1355,8 +1360,8 @@ def main() -> int:
     cscene, ccam = cornell_box_scene(device="cuda")
     cmats = camera_matrices(ccam, 1.0)
     ccfg = RenderConfig(**CORNELL)
-    check(dispatch.get_render_frame("auto", cscene, ccfg)
-          is golden.render_frame, "dispatch 'auto' picks brute force for "
+    check(dispatch.get_render_frame("auto", cscene, ccfg).backend
+          == "golden", "dispatch 'auto' picks brute force for "
           "the Cornell box")
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():

@@ -60,16 +60,26 @@ def test_cluster_tables_and_vertex_slabs_bit_exact(case):
 
 @pytest.mark.parametrize("ray_block", [512, 128])
 def test_cull_matches(case, ray_block):
+    """The port's cull is the JAX package's over the live clusters; an
+    all-dead cluster's inverted box, which the JAX package's slab test
+    lets every ray enter at t0 = -inf, is entered by no ray."""
     o, d, t0 = case["o"], case["d"], case["t_init"]
     RB = R // ray_block
+    jcmin, jcmax = (np.asarray(x) for x in case["jt"][1:])
+    live = np.all(jcmin <= jcmax, axis=1)
+    assert 0 < live.sum() < live.size
     jb, jl = jcluster._cull(jnp.asarray(o), jnp.asarray(d), jnp.asarray(t0),
-                            *case["jt"][1:], RB, ray_block)
+                            jnp.asarray(jcmin[live]), jnp.asarray(jcmax[live]),
+                            RB, ray_block)
+    want_b = np.full((RB, live.size), KINF, np.float32)
+    want_b[:, live] = np.asarray(jb)
     tb, tl = cluster._cull(_t(o), _t(d), _t(t0), *case["tt"][1:], RB,
                            ray_block)
     np.testing.assert_array_equal((tb < KINF).sum(1).numpy(),
-                                  np.asarray(jnp.sum(jb < KINF, axis=1)))
-    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), rtol=1e-6)
+                                  (want_b < KINF).sum(1))
+    np.testing.assert_allclose(tb.numpy(), want_b, rtol=1e-6)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-6)
+    assert np.all(np.isfinite(tl.numpy()))
 
 
 def test_grouped_cull_matches_direct(case, monkeypatch):

@@ -93,7 +93,7 @@ def test_frame_matches_jax(name, backend):
     jscene, jm, tscene, tm = _case(name)
     jfn = jdispatch.get_render_frame("auto", jscene, None)
     tfn = dispatch.get_render_frame("auto", tscene, None)
-    assert tfn.__module__.endswith(backend) and jfn.__module__.endswith(backend)
+    assert tfn.backend == backend and jfn.__module__.endswith(backend)
     want = np.asarray(_reference(name, jfn)(jscene, jm, JConfig(**CFG), FRAME))
     got = tfn(tscene, tm, RenderConfig(**CFG), FRAME).numpy()
     assert got.shape == (32, 32, 3)

@@ -228,10 +228,14 @@ def test_wavefront_frame_matches_jax(walk):
 def test_dispatch_names():
     _, _, tscene, _ = _bunny_split()
     cfg = RenderConfig(**FRAME_CFG)
-    assert dispatch.get_render_frame("pallas", tscene, cfg) \
-        is wavefront.render_frame_pallas
-    assert dispatch.get_render_frame("wavefront", tscene, cfg) \
-        is wavefront.render_frame
+    assert dispatch.get_render_frame("pallas", tscene, cfg).backend \
+        == "pallas"
+    assert dispatch.get_intersect_fn("pallas", tscene, cfg) \
+        is wavefront.intersect_scene_pallas
+    assert dispatch.get_render_frame("wavefront", tscene, cfg).backend \
+        == "wavefront"
+    assert dispatch.get_intersect_fn("wavefront", tscene, cfg) \
+        is wavefront.intersect_scene_bvh
     with pytest.raises(ValueError, match="unknown renderer"):
         dispatch.get_render_frame("bvh", tscene, cfg)
 

@@ -89,7 +89,7 @@ def tables_from_coords(a, b, c, mat, lv, C):
     tris: (C * CLUSTER_ROWS, CLUSTER_TRIS) f32 — cluster c occupies rows
     [16c, 16c + 16): rows 0..8 ax..cz, row 9 the material id, rows 10..15
     zero.  The AABBs cover live slots only; an all-dead cluster gets
-    (+KINF, -KINF) and never passes the slab test.
+    (+KINF, -KINF), which ``_cull`` never lets a ray enter.
     """
     Tpad = C * CLUSTER_TRIS
     zeros = torch.zeros((Tpad, CLUSTER_ROWS - 10), dtype=a.dtype,
@@ -182,17 +182,22 @@ def sweep_reference(origin, direction, t_init, tris, cmin, cmax):
 def _cull(origin, direction, t_best, cmin, cmax, RB: int, ray_block: int):
     """Ray-vs-cluster AABB cull -> (bt0 (RB, C) block entry distances, KINF
     where no ray of the block enters; t_lim (Rp,) farthest exit per ray,
-    -KINF where it enters nothing).  A ray enters a cluster if its slab
-    interval is non-empty, not behind it, and starts before ``t_best``.
-    Above CULL_MATERIALIZE_ELEMS (rays x clusters) it runs in groups of
-    blocks, bounding the scratch memory."""
+    -KINF where it enters nothing).  A ray enters a live cluster if its
+    slab interval is non-empty, not behind it, and starts before
+    ``t_best``.  An all-dead cluster's inverted box (+KINF, -KINF) is
+    excluded explicitly: the slab test orders each axis's two distances,
+    so it alone would let every ray in at t0 = -inf, ahead of every bound,
+    and give every ray t_lim = +inf.  Above CULL_MATERIALIZE_ELEMS
+    (rays x clusters) it runs in groups of blocks, bounding the scratch
+    memory."""
     C = cmin.shape[0]
     Rp = origin.shape[0]
     inv_d = 1.0 / direction
+    live = torch.all(cmin <= cmax, dim=1)
 
     def sweep(o, idv, tb):
         t0, t1 = ix.ray_box_sweep(o, idv, cmin, cmax)
-        enter = (t0 <= t1) & (t1 >= 0.0) & (t0 < tb[:, None])
+        enter = (t0 <= t1) & (t1 >= 0.0) & (t0 < tb[:, None]) & live
         bt0 = torch.amin(torch.where(enter, t0, KINF).view(-1, ray_block, C),
                          dim=1)
         t_lim = torch.amax(torch.where(enter, t1, -KINF), dim=1)

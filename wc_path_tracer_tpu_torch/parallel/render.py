@@ -2,10 +2,10 @@
 part of the JAX package's parallel/render.py).
 
 The JAX package shards the image's rows over a device mesh and all-reduces
-the parameter gradients; here one process renders the whole frame as one
-band.  The band arguments (``y0``, ``band``) and the mean over *global*
-pixels are kept, so the split over ranks (ROADMAP A11) adds a row offset
-and an ``all_reduce`` of the grads and changes no convention.
+the parameter gradients; here one process renders the whole frame.  The
+loss is a sum divided by the *global* pixel count, so the split over ranks
+(ROADMAP A11) adds a row band per rank and an ``all_reduce`` of the grads
+and changes no convention.
 """
 
 from __future__ import annotations
@@ -22,18 +22,16 @@ from wc_path_tracer_tpu_torch.utils.config import RenderConfig
 BENCH_TRAINABLE = ("albedo", "emission", "emission_strength", "roughness")
 
 
-def _loss_rows(scene, mats, cfg: RenderConfig, frame_count: int, y0: int,
-               band: int, target_rows, renderer: str = "golden"):
-    """Sum of squared errors of rows [y0, y0 + band) against
-    ``target_rows``.  ``renderer`` is any name dispatch.get_render_frame
-    takes, or a function (scene, cfg) -> intersect_fn (e.g. the sweep
-    through the plain twin).  The sum is local; the caller divides by the
-    global count."""
+def _loss_rows(scene, mats, cfg: RenderConfig, frame_count: int, target,
+               renderer: str = "golden"):
+    """Sum of squared errors of the frame against ``target``.  ``renderer``
+    is any name dispatch.get_render_frame takes, or a function (scene, cfg)
+    -> intersect_fn (e.g. the sweep through the plain twin).  The caller
+    divides by the global pixel count."""
     fn = renderer(scene, cfg) if callable(renderer) \
         else dispatch.get_intersect_fn(renderer, scene, cfg)
-    img = golden.render_rows(scene, mats, cfg, frame_count, y0, band,
-                             intersect_fn=fn)
-    return torch.sum((img - target_rows) ** 2)
+    img = golden.render_frame(scene, mats, cfg, frame_count, intersect_fn=fn)
+    return torch.sum((img - target) ** 2)
 
 
 def scene_loss_grad(cfg: RenderConfig, trainable, renderer: str = "golden"):
@@ -59,8 +57,7 @@ def scene_loss_grad(cfg: RenderConfig, trainable, renderer: str = "golden"):
         s, cam = reg.apply_params(scene, camera, params)
         mats = camera_matrices(cam, aspect) if isinstance(cam, Camera) \
             else cam
-        loss = _loss_rows(s, mats, cfg, frame_count, 0, cfg.height, target,
-                          renderer) / npix
+        loss = _loss_rows(s, mats, cfg, frame_count, target, renderer) / npix
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
         return loss.detach(), {

@@ -23,37 +23,44 @@ from wc_path_tracer_tpu_torch.render import golden, sweep, wavefront
 BRUTE_FORCE_MAX_TRIS = 256
 
 
+# renderer name -> (scene, cfg) -> closest-hit backend for golden's transport
+_BACKENDS = {
+    "golden": lambda scene, cfg: golden.intersect_scene_brute,
+    "sweep": sweep.make_intersect_fn,
+    "wavefront": lambda scene, cfg: wavefront.intersect_scene_bvh,
+    "pallas": lambda scene, cfg: wavefront.intersect_scene_pallas,
+}
+
+
+def _backend(name: str, scene) -> str:
+    if name == "auto":
+        name = _auto(scene)
+    if name not in _BACKENDS:
+        raise ValueError(f"unknown renderer {name!r}")
+    return name
+
+
 def get_intersect_fn(name: str, scene, cfg):
     """The closest-hit backend of renderer ``name`` for golden's transport
     (``golden.render_rows(..., intersect_fn=...)``), built for this scene:
     the sweep's tables and attached vertex slabs come from ``scene`` as
     given, so parameters applied to it reach the re-shade."""
-    if name == "auto":
-        name = _auto(scene)
-    if name == "golden":
-        return golden.intersect_scene_brute
-    if name == "sweep":
-        return sweep.make_intersect_fn(scene, cfg)
-    if name == "wavefront":
-        return wavefront.intersect_scene_bvh
-    if name == "pallas":
-        return wavefront.intersect_scene_pallas
-    raise ValueError(f"unknown renderer {name!r}")
+    return _BACKENDS[_backend(name, scene)](scene, cfg)
 
 
 def get_render_frame(name: str, scene, cfg):
-    if name == "golden":
-        return golden.render_frame
-    if name == "sweep":
-        return sweep.render_frame
-    if name == "wavefront":
-        return wavefront.render_frame
-    if name == "pallas":
-        return wavefront.render_frame_pallas
-    if name != "auto":
-        raise ValueError(f"unknown renderer {name!r}")
-    return sweep.render_frame if _auto(scene) == "sweep" \
-        else golden.render_frame
+    """(scene, mats, cfg, frame_count) -> one frame through renderer
+    ``name`` ("auto" picks by ``scene``); the backend is built per call
+    from the scene the call gets.  The returned function's ``backend`` is
+    the picked name."""
+    backend = _backend(name, scene)
+
+    def render_frame(scene, mats, cfg, frame_count):
+        return golden.render_frame(scene, mats, cfg, frame_count,
+                                   _BACKENDS[backend](scene, cfg))
+
+    render_frame.backend = backend
+    return render_frame
 
 
 def _auto(scene) -> str:

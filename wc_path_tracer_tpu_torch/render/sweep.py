@@ -219,7 +219,6 @@ def occluded_sweep(scene: Scene, origin, direction, max_dist,
 
 
 intersect_scene_sweep.occlusion_fn = occluded_sweep
-intersect_scene_sweep.accepts_alive = True
 
 
 def make_intersect_fn(scene: Scene, cfg: RenderConfig | None = None,
