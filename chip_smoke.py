@@ -44,9 +44,21 @@ emissive sphere); the NEE shadow queries of B1 and B2 (through
 twins and timed against their bounds; kernel-vs-twin parity of the shadow
 flags, image, loss and grads of a 64 x 64 lit bunny on all three paths; a
 5-step inverse-rendering run on the Cornell box with checkpoints, resumed;
-and 3 steps moving the lit bunny's vertices through B1.  The last two lines of
-standard output are a JSON line describing every ported kernel and
-{"ok": true, "device": {...}}.  Any failed check raises: the script then
+and 3 steps moving the lit bunny's vertices through B1.
+
+Its [edge] phase drives the silhouette estimator (``edge_grads``): the
+widened query of the 512 x 512 bunny's primary rays (miter-expanded tables)
+through B1 against its twin, bit for bit, timed against its bound; fwd+bwd
+steps over the vertices and the camera position on the bunny through B1
+and through B2 (whose widened query stays on B1), on the lit bunny with
+NEE+MIS (soft sphere shadows) and on the 1024 x 1024 Cornell box (brute
+force); kernel-vs-twin parity of 64 x 64 frames (widened query, shadow
+flags, image, loss and grads); 3 Adam steps of the lit bunny's vertices,
+whose loss must fall.  Its [compact] phase renders the JAX bench's bsdf_row
+(1024 x 1024 full-BSDF box, 8 bounces, RR; brute force) and the RR bunny
+through B1 with compaction off and on, with the alive share per bounce.
+The last two lines of standard output are a JSON line describing every
+ported kernel and {"ok": true, "device": {...}}.  Any failed check raises: the script then
 exits non-zero and prints no result.  It fails without a CUDA card and
 outside the repository (the port's package must be importable).
 """
@@ -68,7 +80,8 @@ import torch
 
 from wc_path_tracer_tpu_torch import RenderConfig
 from wc_path_tracer_tpu_torch.kernels import build, cluster, traversal
-from wc_path_tracer_tpu_torch.models.builtin import cornell_box_scene
+from wc_path_tracer_tpu_torch.models.builtin import (cornell_box_scene,
+                                                     full_bsdf_scene)
 from wc_path_tracer_tpu_torch.models.gltf import parse_gltf
 from wc_path_tracer_tpu_torch.models.procedural import (
     BUNNY_GLB, bunny_gltf_scene, signed_zero_query, tie_heavy_query)
@@ -77,7 +90,8 @@ from wc_path_tracer_tpu_torch.optim.inverse import (InverseRenderConfig,
                                                     run_inverse_rendering)
 from wc_path_tracer_tpu_torch.parallel import render as prender
 from wc_path_tracer_tpu_torch.render import dispatch, golden, sweep, wavefront
-from wc_path_tracer_tpu_torch.scene.camera import camera_matrices
+from wc_path_tracer_tpu_torch.scene.camera import (camera_matrices,
+                                                   primary_ray_directions)
 from wc_path_tracer_tpu_torch.scene.types import (MATERIAL_LAMBERTIAN,
                                                   MATERIAL_METAL,
                                                   SceneBuilder)
@@ -111,6 +125,12 @@ INVERSE = dict(width=128, height=128, samples=1, max_bounces=4, sky="black",
 # the multi-device dry run's trainable set
 DRY_RUN_TRAINABLE = ("albedo", "emission_strength", "roughness", "vertices",
                      "camera_position")
+# the [edge] cells' trainables: geometry and camera, whose silhouettes the
+# estimator differentiates
+EDGE_TRAINABLE = ("vertices", "camera_position")
+# B1 launches per lit-bunny edge_grads NEE step: the widened query, the
+# closest hits of both traced paths on bounces 1-4, their 2 x 5 shadow queries
+EDGE_LIT_B1 = 1 + 2 * 4 + 2 * 5
 KERNELS = {"B1": cluster.cluster_sweep_kernel,
            "B2": cluster.cluster_sweep_mxu_kernel,
            "B3": traversal.bvh_walk_kernel}
@@ -1201,6 +1221,287 @@ def train_phase(smi, scene, cam, split_scene, cscene, ccam):
                 lit_bunny_vertex_steps=vertices, card=smi)
 
 
+def edge_query(smi, scene, mats, cfg):
+    """The silhouette estimator's widened query of one frame's primary rays
+    (miter-expanded Möller-Trumbore tables, ``t_init = KINF``) through B1
+    and its twin on the same inputs: payload and visits bit for bit, then
+    B1's ms per launch (CUDA events, 20 launches) against its operation
+    bound, the twin's ms, active clusters and visits."""
+    W, H = cfg.width, cfg.height
+    dirs = primary_ray_directions(mats, W, H).reshape(-1, 3)
+    origin = mats.position.expand_as(dirs).contiguous()
+    pix_ang = 2.0 * mats.inverse_projection[1, 1] / float(H)
+    seen = {}
+
+    def both(*args):
+        vk, vp = torch.zeros_like(args[0]), torch.zeros_like(args[0])
+        seen.update(args=[x.clone() for x in args],
+                    k=cluster.cluster_sweep_kernel(*args, vk),
+                    p=cluster.cluster_sweep_plain(*args, vp), vk=vk, vp=vp)
+        return seen["k"]
+
+    with torch.no_grad():
+        sweep.tri_edge_candidate_sweep(scene, origin, dirs, cfg, pix_ang,
+                                       block_fn=both)
+    torch.cuda.synchronize()
+    label = f"edge {W}x{H}"
+    rec = sweep_parity(label, seen["k"], seen["p"], seen["vk"], seen["vp"],
+                       seen["args"][0])
+    check(rec["bitwise"] and rec["visits_equal"],
+          f"{label} query: B1's payload and visits equal the twin's bit for "
+          "bit")
+    args = seen["args"]
+    B = args[3].shape[1]
+    ops = rec["visits"] * B * cluster.CLUSTER_TRIS * OPS_PER_TEST
+    bound_ms, bound_by = bound(ops, nbytes(*args) + nbytes(args[4]))
+    ms = event_ms(lambda: cluster.cluster_sweep_kernel(*args), 20)
+    plain = event_ms(lambda: cluster.cluster_sweep_plain(*args), 1)
+    rec.update(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+               nact_per_block=spread(args[0]),
+               visits_per_block=spread(seen["vk"]))
+    print(f"[edge] {label} query (B1): {ms:.4f} ms per launch, plain "
+          f"{plain:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{ms / bound_ms:.1f}x; nact {rec['nact']}, visits "
+          f"{rec['visits']}, {rec['hits']} of {args[3].shape[0] * B} rays "
+          f"find a widened triangle, on {smi}", flush=True)
+    return rec
+
+
+def edge_cell(smi, label, scene, cam, cfg, per_step):
+    """fwd+bwd of mean((img - target)^2) over ``EDGE_TRAINABLE`` under
+    ``edge_grads`` through dispatch "auto", the target half the hard
+    estimator's frame 0: 1 warm-up step, then 4 steps timed on the host
+    clock (synchronized), every kernel's launch count set to 0 just before
+    them and read just after; ``per_step`` {kernel: launches per step} is
+    what the path must launch."""
+    mats = camera_matrices(cam, 1.0)
+    with torch.no_grad():
+        target = 0.5 * golden.render_frame(scene, mats, cfg.replace(
+            edge_grads=False), 0, dispatch.get_intersect_fn("auto", scene,
+                                                            cfg))
+    loss_grad = prender.scene_loss_grad(cfg, EDGE_TRAINABLE, "auto")
+    loss_grad(scene, cam, 0, target)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for frame in range(1, 5):
+        (loss, grads), s = sync_time(
+            lambda: loss_grad(scene, cam, frame, target))
+        times.append(s * 1e3)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite, norm = grad_stats(grads)
+    want = {k: 4 * per_step.get(k, 0) for k in KERNELS}
+    check(counts == want, f"[edge] {label}: 4 steps launched {counts} "
+          f"(expected {want})")
+    check(finite and norm > 0.0, f"[edge] {label}: the grads of "
+          f"{EDGE_TRAINABLE} are finite, norm {norm:.6g} > 0")
+    ms = sum(times) / len(times)
+    rate = segments_per_s(cfg, ms / 1e3)
+    print(f"[edge] {label}: {ms:.2f} ms/step (4 steps after 1 warm-up, "
+          f"{min(times):.2f}-{max(times):.2f}), {rate:.2f} Mrays/s (both "
+          f"paths count as one), peak {peak:.2f} GiB, loss {float(loss):.6g}, "
+          f"grad norm {norm:.6g}, launches {counts}, on {smi}", flush=True)
+    return dict(ms_per_step=ms, step_ms=times, mrays_s=rate, peak_gib=peak,
+                loss=float(loss), grad_norm=norm, launches=counts)
+
+
+def edge_parity(smi, scene, lit, mats):
+    """Kernel path against plain-twin path on 64 x 64 ``edge_grads`` frames
+    of the bunny (NEE off) and the lit bunny (NEE+MIS), through B1 and B2
+    (whose widened query is B1 or its twin): the widened query's payload,
+    the shadow flags, image and loss bit for bit; grads bitwise under
+    deterministic algorithms (within 1e-6 of each leaf's max |g| where
+    PyTorch names an op without a deterministic form)."""
+    out = {}
+    cfg = RenderConfig(**dict(PARITY, use_nee=False, edge_grads=True))
+    for label, sc, c in (
+            ("bunny", scene, cfg),
+            ("lit bunny nee+mis", lit, cfg.replace(**NEE))):
+        out[f"{label} edge query"] = edge_query(smi, sc, mats, c)
+        for path, cc in (("B1", c), ("B2", c.replace(cluster_kernel="mxu"))):
+            fk, ik, lk, gk, nk = parity_run(sc, mats, cc, path, False)
+            fp, ip, lp, gp, np_ = parity_run(sc, mats, cc, path, True)
+            nondet = sorted(set(nk) | set(np_))
+            want_flags = 2 * (cc.max_bounces + 1) if cc.use_nee else 0
+            same_flags = len(fk) == len(fp) == want_flags and all(
+                torch.equal(x, y) for x, y in zip(fk, fp))
+            grad_err = {k: float((gk[k] - gp[k]).abs().max())
+                        / max(float(gp[k].abs().max()), 1e-30) for k in gk}
+            bitwise = all(torch.equal(gk[k], gp[k]) for k in gk)
+            rec = dict(shadow_equal=same_flags,
+                       image_equal=bool(torch.equal(ik, ip)),
+                       loss_equal=bool(torch.equal(lk, lp)),
+                       grads_bitwise=bitwise, grad_rel_err=grad_err,
+                       nondeterministic_ops=nondet)
+            out[f"{label} {path}"] = rec
+            print(f"[parity] edge {label} {path}: {json.dumps(rec)}",
+                  flush=True)
+            check(same_flags and rec["image_equal"] and rec["loss_equal"],
+                  f"edge {label} {path}: kernel and twin paths give the same "
+                  "shadow queries, image and loss bit for bit (64 x 64)")
+            if nondet:
+                check(max(grad_err.values()) <= 1e-6,
+                      f"edge {label} {path}: grads within 1e-6 of each "
+                      f"leaf's max |g| (no deterministic CUDA form: {nondet})")
+            else:
+                check(bitwise, f"edge {label} {path}: grads bitwise equal "
+                      "under deterministic algorithms")
+    return out
+
+
+def edge_vertex_steps(smi, lit, cam):
+    """3 Adam steps of the lit bunny's vertices (512^2, NEE+MIS,
+    ``edge_grads``, through B1) on the bench loss, mean(img^2), over one
+    fixed frame, so the loss is a function of the vertices alone and must
+    fall.  (Against a copy moved a few pixels the loss sits at the floor of
+    the estimator's hard events: Adam's first steps move every vertex by
+    the learning rate, and the pixels whose later-bounce visibility, or
+    silhouette over the same mesh, flips outweigh the gain.)"""
+    cfg = RenderConfig(**BUNNY, **NEE, edge_grads=True)
+    target = torch.zeros((cfg.height, cfg.width, 3), device="cuda")
+    reset_counts()
+    _, _, hist = run_inverse_rendering(
+        lit, cam, target, cfg, InverseRenderConfig(
+            trainable=("vertices",), learning_rate=1e-3, steps=3,
+            vary_seed=False, log_every=1), renderer="auto")
+    counts = read_counts()
+    check(counts == {"B1": 3 * EDGE_LIT_B1, "B2": 0, "B3": 0},
+          f"[edge] 3 lit-bunny vertex steps launched {counts} (B1: "
+          f"{EDGE_LIT_B1} per step)")
+    losses = [h["loss"] for h in hist]
+    check(losses[-1] < losses[0], "[edge] 3 Adam steps of the vertices "
+          "lower the loss: " + " -> ".join(f"{x:.6g}" for x in losses))
+    ms = [(b["wall_s"] - a["wall_s"]) * 1e3 for a, b in zip(hist, hist[1:])]
+    print(f"[edge] lit bunny 512^2 NEE+MIS vertex steps through B1: losses "
+          f"{losses}, ms per step after the first "
+          f"{', '.join(f'{x:.1f}' for x in ms)}, on {smi}", flush=True)
+    return dict(losses=losses, ms_per_step=ms, launches=counts)
+
+
+def edge_phase(smi, scene, cam, cscene, ccam):
+    """The [edge] phase: the silhouette estimator's fwd+bwd cells, its
+    widened query through B1 at full size, kernel-vs-twin parity at 64^2,
+    3 vertex steps -> its JSON record."""
+    mats = camera_matrices(cam, 1.0)
+    lit = lit_bunny_scene()
+    bunny = RenderConfig(**BUNNY, edge_grads=True)
+    nb = bunny.max_bounces
+    query = edge_query(smi, scene, mats, bunny)
+    cells = {}
+    for label, sc, c, cfg, per_step in (
+            ("bunny 512^2 auto (B1)", scene, cam, bunny,
+             {"B1": 1 + 2 * nb}),
+            ("bunny 512^2 mxu (B2; widened query B1)", scene, cam,
+             bunny.replace(cluster_kernel="mxu"), {"B1": 1, "B2": 2 * nb}),
+            ("lit bunny 512^2 nee+mis auto (B1)", lit, cam,
+             bunny.replace(**NEE), {"B1": EDGE_LIT_B1}),
+            ("cornell 1024^2 (brute)", cscene, ccam,
+             RenderConfig(**CORNELL, edge_grads=True), {})):
+        cells[label] = edge_cell(smi, label, sc, c, cfg, per_step)
+    loss_grad = prender.scene_loss_grad(bunny, EDGE_TRAINABLE, "auto")
+    target = torch.zeros((bunny.height, bunny.width, 3), device="cuda")
+    profile = device_profile(smi, "bunny 512^2 edge_grads fwd+bwd step",
+                             lambda: loss_grad(scene, cam, 7, target))
+    parity = edge_parity(smi, scene, lit, mats)
+    steps = edge_vertex_steps(smi, lit, cam)
+    return dict(query=query, cells=cells, profile=profile, parity=parity,
+                vertex_steps=steps, card=smi)
+
+
+def compact_cell(smi, label, scene, mats, cfg, frame_fn_name):
+    """Forward frames with compaction off and on: per setting 1 warm-up and
+    3 frames timed (host clock, synchronized), every kernel's launch count
+    set to 0 just before and read just after, the sweep queries of one
+    frame captured and timed (CUDA events, 20 launches each); the two
+    settings' frame 5 compared."""
+    out = {}
+    images = {}
+    for compact in (False, True):
+        c = cfg.replace(compact=compact)
+        fn = dispatch.get_render_frame(frame_fn_name, scene, c)
+        with torch.no_grad():
+            fn(scene, mats, c, 0)
+            reset_counts()
+            _, s = sync_time(lambda: [fn(scene, mats, c, f)
+                                      for f in (1, 2, 3)])
+            counts = read_counts()
+            images[compact] = fn(scene, mats, c, 5)
+            queries = []
+
+            def capture(*args):
+                queries.append([x.clone() for x in args])
+                return cluster.cluster_sweep_kernel(*args)
+
+            if fn.backend == "sweep":
+                golden.render_frame(scene, mats, c, 0, sweep.make_intersect_fn(
+                    scene, c, block_fn=capture))
+            profile = device_profile(
+                smi, f"{label} frame, compaction "
+                f"{'on' if compact else 'off'}", lambda: fn(scene, mats, c, 7),
+                top=6)
+        per_launch = [event_ms(lambda: cluster.cluster_sweep_kernel(*q), 20)
+                      for q in queries]
+        rays = [int(q[3].shape[0] * q[3].shape[1]) for q in queries]
+        out["on" if compact else "off"] = dict(
+            ms_per_frame=s / 3 * 1e3, launches=counts,
+            b1_ms_per_launch=per_launch, b1_rays_per_launch=rays,
+            profile=profile)
+        print(f"[compact] {label} compaction {'on' if compact else 'off'}: "
+              f"{s / 3 * 1e3:.2f} ms/frame (3 frames after 1 warm-up), "
+              f"launches {counts}"
+              + (f", B1 ms per launch {[round(x, 4) for x in per_launch]} "
+                 f"over {rays} rays" if queries else "") + f", on {smi}",
+              flush=True)
+    a, b = images[False], images[True]
+    differ = float(((a - b).abs().amax(dim=-1) > 0.0).float().mean())
+    out.update(bitwise=bool(torch.equal(a, b)), pixels_differ=differ,
+               agree_1e3=image_agreement(a, b, 1e-3))
+    print(f"[compact] {label}: compacted frame equals the plain frame bit "
+          f"for bit: {out['bitwise']}; {differ:.6f} of pixels differ, "
+          f"{out['agree_1e3']:.6f} agree to 1e-3", flush=True)
+    check(bool(torch.isfinite(b).all()) and out["agree_1e3"] >= 0.99,
+          f"[compact] {label}: the compacted frame is finite and matches the "
+          f"plain frame to 1e-3 on {out['agree_1e3']:.4f} of pixels (>= 0.99)")
+    return out
+
+
+def compact_phase(smi, scene, mats):
+    """The [compact] phase: the JAX bench's bsdf_row forward (brute force,
+    no kernel) and the RR bunny through B1, compaction off and on, with the
+    alive share per bounce -> its JSON record."""
+    fscene, fcam = full_bsdf_scene(device="cuda")
+    fmats = camera_matrices(fcam, 1.0)
+    bsdf = RenderConfig(width=1024, height=1024, samples=1, max_bounces=8,
+                        sky="black", use_rr=True)
+    out = {}
+    for label, sc, m, cfg in (
+            ("full_bsdf 1024^2 8 bounces rr (brute)", fscene, fmats, bsdf),
+            ("bunny 512^2 rr from bounce 1 (B1)", scene, mats,
+             RenderConfig(**BUNNY, use_rr=True, rr_start_bounce=1))):
+        alive = golden.alive_per_bounce(
+            sc, m, cfg, 0, dispatch.get_intersect_fn("auto", sc, cfg))
+        share = [float(x) / (cfg.width * cfg.height) for x in alive]
+        print(f"[compact] {label}: alive share entering each bounce "
+              f"{[round(x, 4) for x in share]} (count_alive_segments "
+              f"{int(alive.sum())} of {len(share) * cfg.width * cfg.height}); "
+              f"compact_from {cfg.compact_from_resolved}, on {smi}",
+              flush=True)
+        rec = compact_cell(smi, label, sc, m, cfg, "auto")
+        rec.update(alive_share=share, compact_from=cfg.compact_from_resolved)
+        out[label] = rec
+    check(out["full_bsdf 1024^2 8 bounces rr (brute)"]["bitwise"],
+          "[compact] the brute-force compacted full_bsdf frame equals the "
+          "plain frame bit for bit")
+    b1 = out["bunny 512^2 rr from bounce 1 (B1)"]
+    check(all(b1[k]["launches"] == {"B1": 15, "B2": 0, "B3": 0}
+              for k in ("off", "on")),
+          "[compact] 3 RR bunny frames launched B1 15 times with compaction "
+          "off and on")
+    return out
+
+
 def shadow_entry(train, key):
     """A kernel's NEE shadow-query keys for the kernels line: ms per launch
     and bound averaged over the lit bunny's five shadow queries, and its
@@ -1442,6 +1743,12 @@ def main() -> int:
     for entry, key in ((b2, "B2"), (b3, "B3")):
         entry.update(shadow_entry(train, key))
 
+    # -- 11. the silhouette estimator (edge_grads) and alive-lane compaction
+    edge = edge_phase(smi, scene, cam, cscene, ccam)
+    compact = compact_phase(smi, scene, mats)
+    b2["edge_launches"] = {label: c["launches"]["B2"]
+                           for label, c in edge["cells"].items()}
+
     print(json.dumps({"kernels": [{
         "name": "cluster_sweep",
         "route": "cuda",
@@ -1468,6 +1775,13 @@ def main() -> int:
         "profiles": profiles,
         **shadow_entry(train, "B1"),
         "train": train,
+        "edge_ms": edge["query"]["ms"],
+        "edge_bound_ms": edge["query"]["bound_ms"],
+        "edge_bound_by": edge["query"]["bound_by"],
+        "edge_note": "the widened silhouette query of one 512^2 bunny "
+                     "frame's primary rays (1 launch per frame)",
+        "edge": edge,
+        "compact": compact,
     }, b2, b3]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

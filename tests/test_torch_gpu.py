@@ -24,7 +24,8 @@ from wc_path_tracer_tpu_torch.models.procedural import (bumpy_sphere,
                                                          tie_heavy_query)
 from wc_path_tracer_tpu_torch.parallel import render as prender
 from wc_path_tracer_tpu_torch.render import golden, sweep, wavefront
-from wc_path_tracer_tpu_torch.scene.camera import camera_matrices
+from wc_path_tracer_tpu_torch.scene.camera import (camera_matrices,
+                                                   primary_ray_directions)
 from wc_path_tracer_tpu_torch.scene.types import (MATERIAL_LAMBERTIAN,
                                                   MATERIAL_METAL,
                                                   SceneBuilder)
@@ -525,3 +526,113 @@ def test_nee_grads_kernel_equal_plain_twin(path, monkeypatch):
         else:
             assert torch.equal(gk[key], gp[key]), key
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["mt", "mxu"])
+def test_edge_query_kernel_matches_plain_twin(variant):
+    """The silhouette estimator's widened query (miter-expanded tables,
+    t_init = KINF) through B1 and through its twin: payload and visits bit
+    for bit, and the same record as the brute-force widened query where
+    both find a triangle.  Under cluster_kernel="mxu" the query still
+    launches B1, not B2."""
+    _need_card()
+    scene, cam = bunny_like_scene(3, device="cuda")
+    mats = camera_matrices(cam, 1.0)
+    cfg = RenderConfig(width=64, height=64, edge_grads=True,
+                       cluster_kernel=variant)
+    dirs = primary_ray_directions(mats, 64, 64).reshape(-1, 3)
+    origin = mats.position.expand_as(dirs).contiguous()
+    pix_ang = 2.0 * mats.inverse_projection[1, 1] / 64.0
+    seen = {}
+
+    def both(*args):
+        vk = torch.zeros_like(args[0])
+        vp = torch.zeros_like(args[0])
+        seen.update(k=cluster.cluster_sweep_kernel(*args, vk),
+                    p=cluster.cluster_sweep_plain(*args, vp), vk=vk, vp=vp)
+        return seen["k"]
+
+    sweep.tri_edge_candidate_sweep(scene, origin, dirs, cfg, pix_ang,
+                                   block_fn=both)
+    torch.cuda.synchronize()
+    assert torch.equal(seen["k"], seen["p"])
+    assert torch.equal(seen["vk"], seen["vp"])
+    before = (cluster.cluster_sweep_kernel.launches,
+              cluster.cluster_sweep_mxu_kernel.launches)
+    fn = sweep.make_intersect_fn(scene, cfg)
+    got = fn.edge_tri_fn(scene, origin, dirs, cfg, pix_ang)
+    assert (cluster.cluster_sweep_kernel.launches,
+            cluster.cluster_sweep_mxu_kernel.launches) == (before[0] + 1,
+                                                           before[1])
+    want = golden.tri_edge_candidate_brute(scene, origin, dirs, cfg, pix_ang)
+    f = want["found"]
+    assert torch.equal(got["found"], f) and float(f.float().mean()) > 0.1
+    assert torch.allclose(got["t_w"][f], want["t_w"][f], rtol=1e-5)
+    assert torch.equal(got["material"][f], want["material"][f])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["B1", "B2", "B3"])
+def test_edge_grads_kernel_equal_plain_twin(path, monkeypatch):
+    """A 32 x 32 ``edge_grads`` NEE+MIS frame of the lit bunny through each
+    kernel path and its twin: image and loss bitwise, grads (bench leaves
+    and vertices) bitwise under deterministic algorithms.  On B1 and B2 the
+    widened query goes through B1 or its twin; on B3 it is brute force."""
+    _need_card()
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    scene = lit_bunny_like(3, max_blas_tris=256 if path == "B3" else None)
+    mats = camera_matrices(bunny_like_scene(1, device="cuda")[1], 1.0)
+    cfg = RenderConfig(width=32, height=32, max_bounces=2, use_nee=True,
+                       mis=True, edge_grads=True,
+                       cluster_kernel="mxu" if path == "B2" else "mt")
+
+    def make(plain):
+        if path == "B3":
+            walk = traversal.bvh_walk_plain if plain else None
+            return lambda s, c: wavefront.make_intersect_fn_pallas(s, walk)
+        twin = (cluster.cluster_sweep_mxu_plain if path == "B2"
+                else cluster.cluster_sweep_plain)
+        return lambda s, c: sweep.make_intersect_fn(
+            s, c, block_fn=twin if plain else None)
+
+    ik, lk, gk, nk = _nee_grads(scene, mats, cfg, make(False))
+    ip, lp, gp, np_ = _nee_grads(scene, mats, cfg, make(True))
+    assert torch.isfinite(ik).all() and float(lk) > 0.0
+    assert torch.equal(ik, ip) and torch.equal(lk, lp)
+    for key in gk:
+        assert torch.isfinite(gk[key]).all(), key
+        if nk or np_:
+            scale = float(gp[key].abs().max())
+            assert float((gk[key] - gp[key]).abs().max()) <= 1e-6 * scale, \
+                (key, nk + np_)
+        else:
+            assert torch.equal(gk[key], gp[key]), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("renderer", ["golden", "sweep", "pallas"])
+def test_compact_frame_on_card_equals_plain(renderer):
+    """Compaction on the card, 64 x 64, 6 bounces, RR from bounce 1: the
+    compacted frame equals the plain frame bit for bit through brute force
+    and the BVH walk; through the sweep a block holds other lanes when
+    compacted, so an exact cross-cluster t-tie may go the other way, and at
+    most 1 % of pixels may differ."""
+    _need_card()
+    scene, cam = bunny_like_scene(3 if renderer != "golden" else 1,
+                                  device="cuda")
+    mats = camera_matrices(cam, 1.0)
+    cfg = RenderConfig(width=64, height=64, max_bounces=6, use_rr=True,
+                       rr_start_bounce=1)
+    fn = {"golden": golden.intersect_scene_brute,
+          "sweep": sweep.make_intersect_fn(scene, cfg),
+          "pallas": wavefront.intersect_scene_pallas}[renderer]
+    with torch.no_grad():
+        a = golden.render_frame(scene, mats, cfg, 1, fn)
+        b = golden.render_frame(scene, mats, cfg.replace(compact=True), 1, fn)
+    assert torch.isfinite(a).all() and float(a.mean()) > 0.0
+    if renderer == "sweep":
+        differ = (a - b).abs().amax(dim=-1) > 0.0
+        assert float(differ.float().mean()) <= 0.01
+    else:
+        assert torch.equal(a, b)

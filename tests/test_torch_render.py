@@ -178,7 +178,20 @@ def test_render_step_accumulates_running_mean():
 
 @pytest.mark.parametrize("option", ["compact", "edge_grads"])
 def test_unported_options_raise(option):
+    """The two options the port once refused (raising NotImplementedError)
+    now render through the sweep path: compaction gives the plain frame bit
+    for bit; the silhouette estimator a finite frame of the same mean
+    brightness (within 5 %; it blends a background path in at silhouettes
+    and at the bumpy mesh's horizon-grazing facet edges)."""
     _, _, tscene, tm = _case("bunny")
     cfg = RenderConfig(**CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sweep.render_frame(tscene, tm, cfg.replace(**{option: True}), FRAME)
+    with torch.no_grad():
+        plain = sweep.render_frame(tscene, tm, cfg, FRAME)
+        got = sweep.render_frame(tscene, tm, cfg.replace(**{option: True}),
+                                 FRAME)
+    assert got.shape == plain.shape and bool(torch.isfinite(got).all())
+    if option == "compact":
+        assert torch.equal(got, plain)
+    else:
+        assert not torch.equal(got, plain)
+        assert abs(float(got.mean()) / float(plain.mean()) - 1.0) < 0.05

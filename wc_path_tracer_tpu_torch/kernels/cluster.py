@@ -83,6 +83,24 @@ def vertex_slabs(mesh):
     return coords.reshape(9, C, CLUSTER_TRIS)
 
 
+def neighbor_slabs(mesh):
+    """Detached per-slot neighbor data for the silhouette estimator's edge
+    classification -> (nbrn (9, C, CLUSTER_TRIS), nbrok (3, C,
+    CLUSTER_TRIS)): rows 0:3 / 3:6 / 6:9 of ``nbrn`` hold the geometric
+    normal (unnormalised) of the neighbor across edge (a,b) / (b,c) / (c,a)
+    of the triangle in that slot, zero where it has none; row k of
+    ``nbrok`` is 1.0 where that neighbor exists and is live."""
+    with torch.no_grad():
+        a, b, c, _, lv, C = _padded_tri_coords(mesh)
+        n_all = ix.cross(b - a, c - a)                  # (Tpad, 3)
+        nbr = _pad_rows(mesh.tri_neighbor.long(),
+                        C * CLUSTER_TRIS - mesh.triangle_capacity, -1)
+        ok = (nbr >= 0) & lv[nbr.clamp_min(0)]          # (Tpad, 3)
+        nbrn = torch.where(ok[:, :, None], n_all[nbr.clamp_min(0)], 0.0)
+        return (nbrn.reshape(-1, 9).T.reshape(9, C, CLUSTER_TRIS),
+                ok.T.to(torch.float32).reshape(3, C, CLUSTER_TRIS))
+
+
 def tables_from_coords(a, b, c, mat, lv, C):
     """(tris, cmin, cmax) kernel tables from per-slot coordinates.
 

@@ -15,8 +15,9 @@ Three families:
 Gradients for geometry flow through the differentiable re-shade of the
 detached closest-hit search on every backend (brute force, the cluster
 sweep's attached vertex slabs, the BVH walks' vertex gather): exact for
-interior parameters; hit/miss boundaries carry no gradient (the silhouette
-estimator, ``edge_grads``, is ROADMAP A10).
+interior parameters.  Hit/miss boundaries carry no gradient unless
+``RenderConfig.edge_grads`` is on, whose coverage estimator makes primary
+silhouettes and sphere shadows continuous.
 """
 
 from __future__ import annotations

@@ -18,9 +18,15 @@ triangle slots) are gathered by ``take_rows``, whose backward is the JAX
 package's one-hot matmul.  Next-event estimation (``use_nee``) connects one
 light per lane, picked by area x luminance, and under ``mis`` weights both
 strategies by the balance heuristic; its shadow query is the backend's
-``occlusion_fn`` where it registers one, else its full closest hit.  Not
-ported yet: compaction (``compact``, A9) and the silhouette estimator
-(``edge_grads``, A10) — each raises ``NotImplementedError``.
+``occlusion_fn`` where it registers one, else its full closest hit.
+
+``edge_grads`` (the silhouette estimator, ``trace_rays_edge``) widens the
+primary query by half a pixel around sphere limbs and miter-expanded
+triangles, traces a hit path and a background path per ray and blends them
+by the analytic coverage, so the image is continuous in geometry and
+camera; NEE's sphere occluders become penumbra ramps.  ``compact``
+(``trace_rays_compact``) runs the later bounces on the prefix of blocks
+that holds the live lanes only.
 """
 
 from __future__ import annotations
@@ -236,6 +242,231 @@ def occluded_brute(scene: Scene, origin, direction, max_dist,
 intersect_scene_brute.occlusion_fn = occluded_brute
 
 
+def _expand_triangles(a, b, c, margin):
+    """Detached in-plane offset of each triangle's edges outward by
+    ``margin`` (T,), for the widened silhouette search: every edge line
+    moves out by exactly ``margin``, corners are mitered with the miter
+    factor clamped at 0.25 (sliver corners would spike).  Zero-area
+    (padding) triangles stay degenerate."""
+
+    def outward(p0, p1, q):
+        e = p1 - p0
+        ee = _at_least(ix.dot3(e, e), 1e-12)[:, None]
+        w = q - p0
+        w_perp = w - e * (ix.dot3(w, e)[:, None] / ee)
+        return -w_perp / torch.sqrt(_at_least(ix.dot3(w_perp, w_perp),
+                                              1e-12))[:, None]
+
+    n_ab = outward(a, b, c)
+    n_bc = outward(b, c, a)
+    n_ca = outward(c, a, b)
+    mm = margin[:, None]
+
+    def corner(v, n1, n2):
+        denom = _at_least(1.0 + ix.dot3(n1, n2), 0.25)[:, None]
+        return v + mm * (n1 + n2) / denom
+
+    return corner(a, n_ca, n_ab), corner(b, n_ab, n_bc), corner(c, n_bc, n_ca)
+
+
+_DSIL_NONE = float(np.float32(1e9))   # "no silhouette edge" distance
+# |cos| below which a neighbor counts as on the horizon: at a tessellated
+# fold every adjacent face can be a barely front-facing sliver that covers
+# no ray, so the strict front/back flip misses the visible silhouette.
+# Edges whose neighbor is within ~81 degrees of edge-on count as silhouette;
+# the cost is a one-pixel ramp on steeply grazing interior edges.
+_HORIZON_COS = float(np.float32(0.15))
+
+
+def _tri_edge_eval(origin, direction, a, b, c, material, nbrn, nbrok,
+                   found, pix_ang):
+    """Evaluate the widened triangle query's winner: the attached plane-park
+    ``t``, the flat normal and the coverage ``alpha``.
+
+    ``a``/``b``/``c`` are the winner's ATTACHED vertices, ``nbrn`` (R, 3, 3)
+    the detached normals of the neighbors across edges (a,b), (b,c), (c,a)
+    and ``nbrok`` (R, 3) whether each exists and is live.  Only SILHOUETTE
+    edges ramp the coverage: a boundary, a front/back flip between the two
+    faces, or a neighbor on the horizon; shared interior edges of a surface
+    keep alpha = 1."""
+    unit = torch.tensor([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]],
+                        dtype=a.dtype, device=a.device)
+    safe = found[:, None]
+    a = torch.where(safe, a, unit[0])
+    b = torch.where(safe, b, unit[1])
+    c = torch.where(safe, c, unit[2])
+    t_w = ix.ray_triangle_reshade(origin, direction, a, b, c)
+    t_ok = found & (t_w.detach() > 0.0) & (t_w.detach() < KINF)
+    t_w = torch.where(t_ok, t_w, 1.0)
+    x = origin + t_w[:, None] * direction
+    n_tri = ix.cross(b - a, c - a)
+
+    def edge_dist(p0, p1, q):
+        # signed in-plane distance of x from the edge line (p0, p1),
+        # positive toward the opposite vertex q (inside)
+        e = p1 - p0
+        ee = _at_least(ix.dot3(e, e), 1e-12)
+        w = q - p0
+        wp = w - e * (ix.dot3(w, e) / ee)[:, None]
+        nin = wp / torch.sqrt(_at_least(ix.dot3(wp, wp), 1e-12))[:, None]
+        return ix.dot3(x - p0, nin)
+
+    dists = (edge_dist(a, b, c), edge_dist(b, c, a), edge_dist(c, a, b))
+    d_ng = direction.detach()
+    dn_i = ix.dot3(d_ng, n_tri.detach())
+    dlen = torch.sqrt(_at_least(ix.dot3(d_ng, d_ng), 1e-12))
+    d_sil = torch.full_like(dn_i, _DSIL_NONE)
+    for k, dk in enumerate(dists):
+        nbk = nbrn[:, k, :]
+        dn_k = ix.dot3(d_ng, nbk)
+        nk_len = torch.sqrt(_at_least(ix.dot3(nbk, nbk), 1e-12))
+        graze = torch.abs(dn_k) < _HORIZON_COS * nk_len * dlen
+        sil = (~nbrok[:, k]) | (dn_i * dn_k < 0.0) | graze
+        d_sil = torch.minimum(d_sil, torch.where(sil, dk, _DSIL_NONE))
+    w = pix_ang.detach() * _at_least(t_w.detach(), 1e-3)
+    alpha = torch.clamp(0.5 + d_sil / w, 0.0, 1.0)
+    alpha = torch.where(t_ok, alpha, 1.0)
+    # candidates wholly outside the band occlude nothing (the miters can
+    # overshoot the half-pixel band by ~a quarter pixel at corners)
+    t_ok = t_ok & (alpha.detach() > 0.0)
+    return dict(found=t_ok, t_ng=torch.where(t_ok, t_w.detach(), KINF),
+                t_w=t_w, normal=ix.normalize(n_tri, eps=1e-20),
+                material=material, alpha=alpha)
+
+
+def _edge_margin(a, b, c, origin, pix_ang):
+    """(T,) half-pixel-plus expansion margin of each (detached) triangle:
+    0.55 pixel footprints at its centroid's distance from the camera (the
+    primary rays' shared origin)."""
+    cent = (a + b + c) / 3.0
+    rel = cent - origin.detach()[0]
+    dist = torch.sqrt(_at_least(ix.dot3(rel, rel), 1e-6))
+    return 0.55 * pix_ang.detach() * dist
+
+
+def tri_edge_candidate_brute(scene: Scene, origin, direction,
+                             cfg: RenderConfig, pix_ang):
+    """Widened primary closest hit over miter-expanded triangles for the
+    silhouette estimator, brute force (rays x every slot).  The search is
+    detached; the winner's true vertices are gathered ATTACHED by
+    ``index_select`` (whose backward, ``index_add_``, does not serialize
+    lanes sharing a triangle) and its neighbor normals detached."""
+    mesh = scene.mesh
+    a_all, b_all, c_all = triangle_vertices(mesh)
+    live = _live_triangle_mask(scene)
+    with torch.no_grad():
+        aD, bD, cD = a_all.detach(), b_all.detach(), c_all.detach()
+        margin = _edge_margin(aD, bD, cD, origin, pix_ang)
+        ae, be, ce = _expand_triangles(aD, bD, cD, margin)
+        t_t, t_hit = ix.ray_triangle_sweep(origin.detach(),
+                                           direction.detach(), ae, be, ce)
+        t_ng, idx = _first_min(torch.where(t_hit & live, t_t, KINF))
+        found = t_ng < KINF
+        n_all = ix.cross(bD - aD, cD - aD)
+        nbr = mesh.tri_neighbor.long()
+        nbr_live = (nbr >= 0) & live[nbr.clamp_min(0)]
+        nbrn = torch.where(nbr_live[:, :, None], n_all[nbr.clamp_min(0)], 0.0)
+        win_nbrn, win_ok = nbrn[idx], nbr_live[idx]
+    abc = torch.cat([a_all, b_all, c_all], 1).index_select(0, idx)
+    return _tri_edge_eval(origin, direction, abc[:, 0:3], abc[:, 3:6],
+                          abc[:, 6:9], mesh.tri_material[idx], win_nbrn,
+                          win_ok, found, pix_ang)
+
+
+def intersect_primary_edge(scene: Scene, origin, direction, cfg: RenderConfig,
+                           pix_ang, tri_edge_fn=None):
+    """Edge-aware primary closest hit for silhouette gradients
+    (``cfg.edge_grads``) -> (HitRecord, alpha (R,), background HitRecord).
+
+    The hit/miss step has no gradient under autodiff, so the primal is made
+    continuous instead (the coverage estimator):
+
+    - a sphere is accepted within half a pixel footprint ``w = t * pix_ang``
+      of its limb; grazing rays park at the closest approach, with coverage
+      ``clip(0.5 + (r - b) / w, 0, 1)`` (the discriminant clamped a quarter
+      pixel from tangency keeps the slope bounded);
+    - triangles are searched miter-expanded (``tri_edge_fn``: the brute
+      query by default, the backend's ``edge_tri_fn`` where it has one);
+      coverage ramps over the distance to the nearest silhouette edge.
+
+    The caller blends ``alpha * L_hit + (1 - alpha) * L_background``; the
+    background record is the per-ray loser: the triangle candidate behind a
+    winning sphere, the sphere behind a winning triangle (spheres win ties,
+    as in intersect_scene_brute)."""
+    sph = scene.spheres
+    pix_ang = pix_ang.detach()
+    if tri_edge_fn is None:
+        tri_edge_fn = tri_edge_candidate_brute
+    tc = tri_edge_fn(scene, origin, direction, cfg, pix_ang)
+
+    # the widened sphere search (detached)
+    with torch.no_grad():
+        o_ng, d_ng = origin.detach(), direction.detach()
+        q = sph.position.detach()[None, :, :] - o_ng[:, None, :]  # (R, S, 3)
+        t_ca = ix.dot3(q, d_ng[:, None, :])
+        b2 = ix.dot3(q, q) - t_ca * t_ca
+        r = sph.radius.detach()[None, :]
+        w = _at_least(t_ca, 1e-3) * pix_ang
+        r_eff = r + 0.5 * w
+        disc = r * r - b2
+        # near root only (quirk 1); grazing rays park at t_ca
+        t_cand = torch.where(disc > 0.0,
+                             t_ca - torch.sqrt(_at_least(disc, 0.0)), t_ca)
+        s_live = torch.arange(sph.capacity, device=q.device) < sph.count
+        valid = s_live & (b2 < r_eff * r_eff) & (t_cand > 0.0)
+        t_s_ng, idx = _first_min(torch.where(valid, t_cand, KINF))
+
+    # the attached re-shade of the winning sphere
+    pr = take_rows(torch.cat([sph.position, sph.radius[:, None]], 1), idx)
+    cen, rad, s_mat = pr[:, 0:3], pr[:, 3], sph.material[idx]
+    qw = cen - origin
+    t_ca_w = ix.dot3(qw, direction)
+    b2_w = ix.dot3(qw, qw) - t_ca_w * t_ca_w
+    b_w = ix.safe_sqrt(b2_w)
+    w_w = _at_least(t_ca_w, 1e-3).detach() * pix_ang
+    disc_w = rad * rad - b2_w
+    qw4 = 0.25 * w_w
+    disc_c = torch.maximum(disc_w, qw4 * qw4)   # bounded slope at the limb
+    t_w = torch.where(disc_w.detach() > 0.0, t_ca_w - torch.sqrt(disc_c),
+                      t_ca_w)
+
+    # merge the two widened candidates (spheres win ties)
+    sphere_found = t_s_ng < KINF
+    use_s = sphere_found & (t_s_ng <= tc["t_ng"])
+    use_t = tc["found"] & ~use_s
+    hit = use_s | use_t
+    t_best = torch.where(use_s, t_w, torch.where(use_t, tc["t_w"], 1.0))
+    t_safe = torch.where(hit, t_best, 1.0)
+    p = origin + t_safe[:, None] * direction
+    rad_safe = torch.where(rad.detach() > 0.0, rad, 1.0)
+    n_s = (p - cen) / rad_safe[:, None]
+    up = torch.tensor([0.0, 0.0, 1.0], device=p.device)
+
+    def record(hit, t, p, normal, material):
+        front = ix.dot3(direction.detach(), normal.detach()) < 0.0
+        normal = torch.where(front[:, None], normal, -normal)
+        normal = torch.where(hit[:, None], normal, up)
+        return HitRecord(t=t, p=p, normal=normal, hit=hit, front=front,
+                         material=material.to(torch.int32))
+
+    rec = record(hit, t_safe, p,
+                 torch.where(use_s[:, None], n_s, tc["normal"]),
+                 torch.where(use_s, s_mat, tc["material"]))
+    alpha_s = torch.clamp(0.5 + (rad - b_w) / w_w, 0.0, 1.0)
+    alpha = torch.where(use_s, alpha_s, torch.where(use_t, tc["alpha"], 1.0))
+
+    # the background record: the per-ray LOSER candidate (a triangle behind
+    # a winning sphere, the sphere behind a winning triangle, else a miss)
+    bg_hit = torch.where(use_s, tc["found"], sphere_found)
+    bg_t = torch.where(bg_hit, torch.where(use_s, tc["t_w"], t_w), 1.0)
+    bg_p = origin + bg_t[:, None] * direction
+    bg_n_s = (bg_p - cen) / rad_safe[:, None]
+    rec_bg = record(bg_hit, bg_t, bg_p,
+                    torch.where(use_s[:, None], tc["normal"], bg_n_s),
+                    torch.where(use_s, tc["material"], s_mat))
+    return rec, alpha, rec_bg
+
+
 def _fresnel_reflectance(in_dir, normal, ior_a, ior_b):
     """Unpolarized Fresnel, CalculateReflectance (pathTracer.comp:213-234)."""
     ratio = ior_a / ior_b
@@ -313,6 +544,36 @@ def _light_tables(scene: Scene):
     return torch.cat([s_w, t_w]), s_lum, t_lum, tri, a, b, c
 
 
+_SHADOW_BAND = float(np.float32(0.15))   # the soft shadow's ramp, as a
+#   fraction of the geometric penumbra (see _soft_sphere_shadow)
+
+
+def _soft_sphere_shadow(scene: Scene, origin, wi, dist, extent, mask):
+    """Fractional sphere-occluder visibility for the coverage estimator
+    (``cfg.edge_grads``) -> (R,): the product over live spheres between the
+    point and the light of a linear penumbra ramp ``clip(0.5 + (b - r) / w,
+    0, 1)``, b the ray's (attached) miss distance from the center and w a
+    small fraction of the picked light's geometric penumbra at the
+    occluder, ``extent * t_ca / (dist - t_ca)`` (extent = light radius or
+    sqrt(triangle area)).  Attached, no PCG draws; exact for penumbras that
+    do not overlap.  The Monte Carlo sampling of the light area already
+    integrates the true penumbra; the ramp only makes each sample's step
+    continuous, so w stays small (a full-penumbra band over-blurs)."""
+    sph = scene.spheres
+    q = sph.position[None, :, :] - origin[:, None, :]          # (R, S, 3)
+    t_ca = ix.dot3(q, wi[:, None, :])                          # (R, S)
+    b2 = ix.dot3(q, q) - t_ca * t_ca
+    b = ix.safe_sqrt(_at_least(b2, 0.0))
+    live = (torch.arange(sph.capacity, device=q.device) < sph.count)[None, :]
+    between = (t_ca > 0.0) & (t_ca < dist[:, None])
+    ratio = torch.clamp(t_ca / _at_least(dist[:, None] - t_ca, 1e-4),
+                        0.0, 4.0)
+    w = _at_least(_SHADOW_BAND * extent[:, None] * ratio, 1e-5)
+    v = torch.clamp(0.5 + (b - sph.radius[None, :]) / w, 0.0, 1.0)
+    v = torch.where(live & between & mask[:, None], v, 1.0)
+    return torch.prod(v, dim=-1)
+
+
 def sample_direct_light(scene: Scene, rec: HitRecord, seed, mask,
                         intersect_fn, cfg: RenderConfig):
     """Next-event estimation: one area-sampled light connection per lane.
@@ -322,7 +583,8 @@ def sample_direct_light(scene: Scene, rec: HitRecord, seed, mask,
     throughput (R, 3), wi (R, 3), solid-angle pdf (R,), seed); wi and the
     pdf feed the MIS balance weight.  Draws per lane where ``mask``: 1
     light pick, then 2 point draws, all masked, so other lanes keep their
-    PCG streams.
+    PCG streams.  Under ``cfg.edge_grads`` sphere occluders are soft
+    (``_soft_sphere_shadow``) and the shadow query sees the triangles only.
     """
     sph, mesh, mats = scene.spheres, scene.mesh, scene.materials
     weights, _, _, tri, a, b, c = _light_tables(scene)
@@ -385,20 +647,32 @@ def sample_direct_light(scene: Scene, rec: HitRecord, seed, mask,
     shadow_o = rec.p + rec.normal * BIAS
     thresh = dist - 1e-3 * safe_dist
     enabled = mask & has_lights
+    scene_hard = scene
+    if cfg.edge_grads:
+        # spheres shadow softly (attached); the shadow query sees the
+        # triangles alone, so no sphere counts twice
+        scene_hard = dataclasses.replace(scene, spheres=dataclasses.replace(
+            scene.spheres, count=torch.zeros_like(scene.spheres.count)))
+        cr = ix.cross(tb - ta, tc - ta)
+        extent = torch.where(is_sphere_light, pr[:, 3], ix.safe_sqrt(
+            0.5 * ix.safe_sqrt(ix.dot3(cr, cr))))
+        v_soft = _soft_sphere_shadow(scene, shadow_o, wi, dist, extent,
+                                     enabled)
     occ_fn = getattr(intersect_fn, "occlusion_fn", None)
     if occ_fn is not None:
         # disabled lanes (non-NEE lobes, dead rays, lightless scenes) get a
         # -inf bound: ``ok`` masks them, and the cluster sweep culls them
-        visible = ~occ_fn(scene, shadow_o, wi,
+        visible = ~occ_fn(scene_hard, shadow_o, wi,
                           torch.where(enabled, thresh, -KINF), cfg)
     else:
         # the full closest hit; a backend that skips dead lanes gets
         # ``enabled`` as its alive mask (``ok`` masks every other lane)
         with torch.no_grad():
             if getattr(intersect_fn, "accepts_alive", False):
-                shadow = intersect_fn(scene, shadow_o, wi, cfg, alive=enabled)
+                shadow = intersect_fn(scene_hard, shadow_o, wi, cfg,
+                                      alive=enabled)
             else:
-                shadow = intersect_fn(scene, shadow_o, wi, cfg)
+                shadow = intersect_fn(scene_hard, shadow_o, wi, cfg)
         visible = (~shadow.hit) | (shadow.t >= thresh)
 
     # pdf_area = (w_pick / total) / area_pick = lum_pick / total
@@ -406,6 +680,8 @@ def sample_direct_light(scene: Scene, rec: HitRecord, seed, mask,
     G = _at_least(cos_surf, 0.0) * _at_least(cos_light, 0.0) \
         / (safe_dist * safe_dist)
     contrib = L_e * (G / pdf_a)[:, None]
+    if cfg.edge_grads:
+        contrib = contrib * v_soft[:, None]
     ok = enabled & visible & (cos_surf > 0.0) & (cos_light > 0.0) \
         & (lum_pick > 0.0)
     # solid-angle pdf of this light sample: pdf_area * dist^2 / cos_light
@@ -615,42 +891,147 @@ def _bounce_segment(scene: Scene, cfg: RenderConfig, intersect_fn,
                      pdf_prev=pdf_prev, bounce=s.bounce + 1)
 
 
+def _initial_state(origin, direction, seed) -> PathState:
+    zeros = torch.zeros_like(direction)
+    return PathState(o=origin.expand_as(direction), d=direction, total=zeros,
+                     trans=zeros + 1.0, seed=seed,
+                     alive=torch.ones(direction.shape[0], dtype=torch.bool,
+                                      device=direction.device),
+                     pdf_prev=zeros[:, 0])
+
+
 def trace_rays(scene: Scene, origin, direction, seed, cfg: RenderConfig,
                intersect_fn=None):
     """TraceRay (pathTracer.comp:241-284) over a ray batch: origin/direction
     (R, 3), seed (R,) int64 -> (radiance (R, 3), new_seed).  The loop runs
-    ``max_bounces + 1`` segments (`i <= maxBounceCount`, :245)."""
-    if cfg.compact:
-        raise NotImplementedError(
-            "compact (alive-ray stream compaction) is not ported yet: "
-            "ROADMAP A9")
+    ``max_bounces + 1`` segments (`i <= maxBounceCount`, :245);
+    ``cfg.compact`` runs it through ``trace_rays_compact``."""
     if intersect_fn is None:
         intersect_fn = intersect_scene_brute
-    zeros = torch.zeros_like(direction)
-    s = PathState(o=origin.expand_as(direction), d=direction, total=zeros,
-                  trans=zeros + 1.0, seed=seed,
-                  alive=torch.ones(direction.shape[0], dtype=torch.bool,
-                                   device=direction.device),
-                  pdf_prev=zeros[:, 0])
+    if cfg.compact:
+        return trace_rays_compact(scene, origin, direction, seed, cfg,
+                                  intersect_fn)
+    s = _initial_state(origin, direction, seed)
     for _ in range(cfg.max_bounces + 1):
         s = _bounce_segment(scene, cfg, intersect_fn, s)
     return s.total, s.seed
+
+
+def _lanes(s: PathState) -> dict:
+    """The per-lane fields of ``s``: every one but ``bounce``."""
+    return {f.name: getattr(s, f.name) for f in dataclasses.fields(PathState)
+            if f.name != "bounce"}
+
+
+def trace_rays_compact(scene: Scene, origin, direction, seed,
+                       cfg: RenderConfig, intersect_fn=None):
+    """``trace_rays`` with alive-lane compaction: the same lanes, the same
+    per-lane math, the work of the later bounces cut to the live lanes.
+
+    Bounces before ``cfg.compact_from_resolved`` run on every lane.  Before
+    each later bounce one stable partition (cumsum positions, one scatter)
+    puts the live lanes of those still in play first, and the bounce runs
+    ``_bounce_segment`` on the first ``ceil(n_alive / B) * B`` of them only,
+    B = R / compact_blocks lanes (the block count lowered until it divides
+    R); the rest leave play.  A lane only ever dies, and a dead lane's
+    bounce changes neither its radiance nor its seed, so they need no more
+    work.  The partition repeats each bounce because lanes die in place.
+    Each bounce costs one host read of ``n_alive``; lanes carry their PCG
+    streams, and a scatter through the carried ray index undoes the
+    permutation of ``total`` and ``seed`` at the end.  Autograd saves the
+    prefixes' residuals only."""
+    if intersect_fn is None:
+        intersect_fn = intersect_scene_brute
+    R = direction.shape[0]
+    nblk = min(cfg.compact_blocks, R)
+    while R % nblk:
+        nblk -= 1
+    B = R // nblk
+    n_dense = min(max(cfg.compact_from_resolved, 0), cfg.max_bounces + 1)
+    s = _initial_state(origin, direction, seed)
+    for _ in range(n_dense):
+        s = _bounce_segment(scene, cfg, intersect_fn, s)
+    lanes = _lanes(s)
+    orig = torch.arange(R, device=direction.device)   # lane -> ray
+    done = []             # (total, seed, ray) of the lanes out of play
+    for bounce in range(n_dense, cfg.max_bounces + 1):
+        alive = lanes["alive"]
+        n_alive = int(alive.sum())
+        live_i = alive.long()
+        pos = torch.where(alive, torch.cumsum(live_i, 0) - 1,
+                          n_alive + torch.cumsum(1 - live_i, 0) - 1)
+        order = torch.empty_like(pos).scatter_(0, pos, torch.arange(
+            pos.shape[0], device=pos.device))
+        lanes = {k: v.index_select(0, order) for k, v in lanes.items()}
+        orig = orig.index_select(0, order)
+        n = -(-n_alive // B) * B
+        done.append((lanes["total"][n:], lanes["seed"][n:], orig[n:]))
+        lanes = {k: v[:n] for k, v in lanes.items()}
+        orig = orig[:n]
+        if n == 0:
+            break
+        lanes = _lanes(_bounce_segment(scene, cfg, intersect_fn,
+                                       PathState(**lanes, bounce=bounce)))
+    total = torch.cat([lanes["total"]] + [d[0] for d in done])
+    seed = torch.cat([lanes["seed"]] + [d[1] for d in done])
+    orig = torch.cat([orig] + [d[2] for d in done])
+    inv = torch.empty_like(orig).scatter_(0, orig, torch.arange(
+        R, device=orig.device))
+    return total.index_select(0, inv), seed.index_select(0, inv)
+
+
+def trace_rays_edge(scene: Scene, origin, direction, seed, seed_bg,
+                    cfg: RenderConfig, pix_ang, intersect_fn=None):
+    """``trace_rays`` with the edge-aware primary bounce (``cfg.edge_grads``)
+    -> (blended radiance, seed, seed_bg).
+
+    Two paths per ray: the hit path, whose bounce 0 is the widened record
+    of ``intersect_primary_edge``, and the background path, whose bounce 0
+    is the per-ray loser record; later bounces of both see the full scene
+    (only primary visibility is smoothed), each on its own PCG stream.  They
+    are blended by the coverage: ``alpha * L + (1 - alpha) * L_bg``.  The
+    widened triangle query is the backend's ``edge_tri_fn`` where it has
+    one (the cluster sweep), else brute force.  Bounce 0 swaps in a closure
+    returning the precomputed record; its NEE shadow query still goes to the
+    backend's ``occlusion_fn`` (``occluded_brute`` where it has none), or
+    every surface nearer than its light sample would shadow itself."""
+    if intersect_fn is None:
+        intersect_fn = intersect_scene_brute
+    rec0, alpha, rec_bg = intersect_primary_edge(
+        scene, origin, direction, cfg, pix_ang,
+        getattr(intersect_fn, "edge_tri_fn", None))
+    real_occ = getattr(intersect_fn, "occlusion_fn", None) or occluded_brute
+
+    def run(rec_primary, seed):
+        def fn0(scene, o, d, cfg):
+            return rec_primary
+
+        fn0.occlusion_fn = real_occ
+        s = _initial_state(origin, direction, seed)
+        for i in range(cfg.max_bounces + 1):
+            s = _bounce_segment(scene, cfg, fn0 if i == 0 else intersect_fn,
+                                s)
+        return s.total, s.seed
+
+    light, seed = run(rec0, seed)
+    light_bg, seed_bg = run(rec_bg, seed_bg)
+    blended = alpha[:, None] * light + (1.0 - alpha[:, None]) * light_bg
+    return blended, seed, seed_bg
 
 
 def render_rows(scene: Scene, mats: CameraMatrices, cfg: RenderConfig,
                 frame_count: int, y0: int, num_rows: int, intersect_fn=None):
     """Render rows [y0, y0 + num_rows) -> (num_rows, W, 3).  Pixel seeds use
     global pixel indices (pathTracer.comp:304), so a band is pixel-identical
-    to the same rows of a full frame."""
-    if cfg.edge_grads:
-        raise NotImplementedError(
-            "edge_grads (silhouette gradients) is not ported yet: "
-            "ROADMAP A10")
+    to the same rows of a full frame.  Under ``cfg.edge_grads`` each sample
+    is ``trace_rays_edge``'s blend, its background path on a stream of its
+    own seeded with ``frame_count + 747796405`` (mod 2^32)."""
     H, W = cfg.height, cfg.width
     dev = mats.position.device
     xs = torch.arange(W, device=dev)[None, :]
     ys = (y0 + torch.arange(num_rows, device=dev))[:, None]
-    seed = rng.pixel_seed((xs + ys * W).reshape(-1), frame_count)
+    pixel_index = (xs + ys * W).reshape(-1)
+    seed = rng.pixel_seed(pixel_index, frame_count)
     origin = mats.position.expand(num_rows * W, 3)
 
     def band_directions(jitter=None):
@@ -659,6 +1040,16 @@ def render_rows(scene: Scene, mats: CameraMatrices, cfg: RenderConfig,
 
     acc = torch.zeros((num_rows * W, 3), device=dev)
     dirs = None if cfg.pixel_jitter else band_directions()
+    if cfg.edge_grads:
+        # the angular pixel height: inverse_projection[1, 1] = tan(fov / 2)
+        pix_ang = (2.0 * mats.inverse_projection[1, 1] / float(H)).detach()
+        seed_bg = rng.pixel_seed(pixel_index, int(frame_count) + 747796405)
+        for _ in range(cfg.samples):
+            blended, seed, seed_bg = trace_rays_edge(
+                scene, origin, dirs, seed, seed_bg, cfg, pix_ang,
+                intersect_fn)
+            acc = acc + blended
+        return (acc / float(cfg.samples)).view(num_rows, W, 3)
     for _ in range(cfg.samples):
         if cfg.pixel_jitter:
             # 2 draws per sample per pixel (extension; the reference never
@@ -680,6 +1071,39 @@ def render_frame(scene: Scene, mats: CameraMatrices, cfg: RenderConfig,
     pixel (main(), pathTracer.comp:289-312)."""
     return render_rows(scene, mats, cfg, frame_count, 0, cfg.height,
                        intersect_fn)
+
+
+@torch.no_grad()
+def alive_per_bounce(scene: Scene, mats: CameraMatrices, cfg: RenderConfig,
+                     frame_count: int, intersect_fn=None):
+    """(max_bounces + 1,) int64: the lanes alive entering each bounce of one
+    frame's first sample (every lane on bounce 0), the transport run with
+    every lane, as the reference marches them."""
+    if intersect_fn is None:
+        intersect_fn = intersect_scene_brute
+    H, W = cfg.height, cfg.width
+    dev = mats.position.device
+    seed = rng.pixel_seed(torch.arange(H * W, device=dev), frame_count)
+    dirs = primary_ray_directions(mats, W, H).reshape(-1, 3)
+    s = _initial_state(mats.position.expand(H * W, 3), dirs, seed)
+    counts = []
+    for _ in range(cfg.max_bounces + 1):
+        counts.append(s.alive.sum())
+        s = _bounce_segment(scene, cfg, intersect_fn, s)
+    return torch.stack(counts)
+
+
+def count_alive_segments(scene: Scene, mats: CameraMatrices,
+                         cfg: RenderConfig, frame_count: int,
+                         intersect_fn=None) -> int:
+    """Alive lane-segments of one frame: the sum of ``alive_per_bounce``
+    times ``cfg.samples``.  The dispatched count W*H*samples*(max_bounces+1)
+    marches every lane through every bounce, as the reference does; with
+    Russian roulette and sky misses most lanes are dead late, and a rate
+    over this count says how much of the work was live.  Callers pass their
+    active backend as ``intersect_fn`` (default brute force)."""
+    return int(alive_per_bounce(scene, mats, cfg, frame_count,
+                                intersect_fn).sum()) * cfg.samples
 
 
 def accumulate(old_image, new_frame, frame_count: int):

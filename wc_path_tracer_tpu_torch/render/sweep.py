@@ -13,8 +13,10 @@ The search is detached; the re-shade fetches the winner's vertices by an
 index gather from the slot id in payload column 11 through the ATTACHED
 ``cluster.vertex_slabs``, so vertex gradients can flow through it.  NEE's
 shadow rays go through ``occluded_sweep``: the same sweep bounded at the
-light's distance, with no re-shade.  Not ported yet:
-``tri_edge_candidate_sweep`` (silhouettes, A10).
+light's distance, with no re-shade.  The silhouette estimator's widened
+primary query (``cfg.edge_grads``) goes through
+``tri_edge_candidate_sweep``: the Möller-Trumbore sweep over
+miter-expanded tables, under either ``cluster_kernel``.
 """
 
 from __future__ import annotations
@@ -136,6 +138,24 @@ def _unpack_tables(tables):
     return tris, cmin, cmax, None, "mt"
 
 
+def _sweep(origin, direction, t_init, tables, cfg: RenderConfig, block_fn,
+           active=None, scene=None):
+    """``cluster.cluster_sweep`` of detached rays over ``tables`` (either
+    variant), in the order ``cfg.ray_sort`` regroups them (``_permuter``
+    with ``active`` and ``scene``), the payload back in ray order."""
+    tris, cmin, cmax, mat_tbl, variant = _unpack_tables(tables)
+    kw = dict(ray_block=cfg.ray_block or cluster.RAY_BLOCK, block_fn=block_fn,
+              variant=variant, mat_tbl=mat_tbl)
+    perm = _permuter(origin, direction, cfg, cmin, cmax, active=active,
+                     scene=scene)
+    if perm is None:
+        return cluster.cluster_sweep(origin, direction, t_init, tris, cmin,
+                                     cmax, **kw)
+    fwd, inv = perm
+    return inv(cluster.cluster_sweep(fwd(origin), fwd(direction), fwd(t_init),
+                                     tris, cmin, cmax, **kw))
+
+
 def intersect_scene_sweep(scene: Scene, origin, direction, cfg: RenderConfig,
                           tables=None, vslabs=None, alive=None, block_fn=None):
     """Closest-hit query through the cluster sweep.
@@ -155,19 +175,9 @@ def intersect_scene_sweep(scene: Scene, origin, direction, cfg: RenderConfig,
         scene, origin, direction, cfg)
     if tables is None:
         tables = build_tables(scene.mesh, cfg)
-    tris, cmin, cmax, mat_tbl, variant = _unpack_tables(tables)
     t_bound = t_s if alive is None else torch.where(alive, t_s, -KINF)
-    rb = cfg.ray_block or cluster.RAY_BLOCK
-    kw = dict(ray_block=rb, block_fn=block_fn, variant=variant,
-              mat_tbl=mat_tbl)
-    perm = _permuter(o_ng, d_ng, cfg, cmin, cmax, active=alive, scene=scene)
-    if perm is None:
-        pay = cluster.cluster_sweep(o_ng, d_ng, t_bound, tris, cmin, cmax,
-                                    **kw)
-    else:
-        fwd, inv = perm
-        pay = inv(cluster.cluster_sweep(fwd(o_ng), fwd(d_ng), fwd(t_bound),
-                                        tris, cmin, cmax, **kw))
+    pay = _sweep(o_ng, d_ng, t_bound, tables, cfg, block_fn, active=alive,
+                 scene=scene)
     t_tri = pay[:, 0]
     if alive is not None:
         # dead lanes: restore the unbounded t (t == t_init on a miss)
@@ -201,36 +211,66 @@ def occluded_sweep(scene: Scene, origin, direction, max_dist,
     s_occ = golden.sphere_occluded(scene, origin, direction, max_dist, cfg)
     if tables is None:
         tables = build_tables(scene.mesh, cfg)
-    tris, cmin, cmax, mat_tbl, variant = _unpack_tables(tables)
-    rb = cfg.ray_block or cluster.RAY_BLOCK
-    kw = dict(ray_block=rb, block_fn=block_fn, variant=variant,
-              mat_tbl=mat_tbl)
-    perm = _permuter(origin, direction, cfg, cmin, cmax,
-                     active=max_dist > 0.0, scene=scene)
-    if perm is None:
-        pay = cluster.cluster_sweep(origin, direction, max_dist, tris, cmin,
-                                    cmax, **kw)
-    else:
-        fwd, inv = perm
-        pay = inv(cluster.cluster_sweep(fwd(origin), fwd(direction),
-                                        fwd(max_dist), tris, cmin, cmax,
-                                        **kw))
+    pay = _sweep(origin, direction, max_dist, tables, cfg, block_fn,
+                 active=max_dist > 0.0, scene=scene)
     return s_occ | (pay[:, 11] >= 0.0)
 
 
+def tri_edge_candidate_sweep(scene: Scene, origin, direction,
+                             cfg: RenderConfig, pix_ang, vslabs=None,
+                             block_fn=None):
+    """The silhouette estimator's widened primary query through the cluster
+    sweep (``golden.tri_edge_candidate_brute``'s result on meshed scenes):
+    the triangles are miter-expanded by 0.55 pixel footprints at their
+    distance from the camera (``origin[0]``), put in Möller-Trumbore tables
+    and swept from ``t_init = KINF``, with the ray regrouping of the
+    closest-hit queries.  The search is detached; the winner's true
+    vertices come ATTACHED from ``vslabs`` (``cluster.vertex_slabs``) by
+    ``index_select`` on payload column 11, its neighbor normals detached
+    from ``cluster.neighbor_slabs``; ``golden._tri_edge_eval`` evaluates
+    it.  ``block_fn``: the block sweep, default B1's kernel wrapper."""
+    o_ng, d_ng = origin.detach(), direction.detach()
+    with torch.no_grad():
+        a, b, c, mat, lv, C = cluster._padded_tri_coords(scene.mesh)
+        margin = golden._edge_margin(a, b, c, o_ng, pix_ang) * lv.float()
+        tables = cluster.tables_from_coords(
+            *golden._expand_triangles(a, b, c, margin), mat, lv, C)
+        t_init = torch.full((o_ng.shape[0],), KINF, device=o_ng.device)
+        pay = _sweep(o_ng, d_ng, t_init, tables, cfg, block_fn, scene=scene)
+        found = pay[:, 11] >= 0.0
+        slot = pay[:, 11].to(torch.int64).clamp_min(0)
+        nslabs, oslabs = cluster.neighbor_slabs(scene.mesh)
+        nbrn = nslabs.reshape(9, -1)[:, slot].T.reshape(-1, 3, 3)
+        nbrok = oslabs.reshape(3, -1)[:, slot].T > 0.5
+    if vslabs is None:
+        vslabs = cluster.vertex_slabs(scene.mesh)
+    coords = vslabs.reshape(9, -1).index_select(1, slot)     # (9, R)
+    return golden._tri_edge_eval(
+        origin, direction, coords[0:3].T, coords[3:6].T, coords[6:9].T,
+        pay[:, 10].to(torch.int32), nbrn, nbrok, found, pix_ang)
+
+
 intersect_scene_sweep.occlusion_fn = occluded_sweep
+intersect_scene_sweep.edge_tri_fn = tri_edge_candidate_sweep
 
 
 def make_intersect_fn(scene: Scene, cfg: RenderConfig | None = None,
                       block_fn=None):
     """intersect_fn with the cluster tables and vertex slabs built once per
-    frame and shared by every bounce's closest-hit and NEE shadow query.
-    ``block_fn`` overrides the block sweep of both, e.g.
-    ``cluster.cluster_sweep_plain`` (or, under ``cluster_kernel="mxu"``,
-    ``cluster.cluster_sweep_mxu_plain``) to render through the plain twin
-    on the card."""
+    frame and shared by every bounce's closest-hit and NEE shadow query and
+    by the silhouette query (``edge_tri_fn``, whose expanded tables depend
+    on the camera and are built per call).  ``block_fn`` overrides the
+    block sweep of all three, e.g. ``cluster.cluster_sweep_plain`` (or,
+    under ``cluster_kernel="mxu"``, ``cluster.cluster_sweep_mxu_plain``) to
+    render through the plain twin on the card.  The silhouette query sweeps
+    Möller-Trumbore tables under either kernel, so under "mxu" it takes B1
+    (``cluster_sweep_plain`` where ``block_fn`` is B2's twin)."""
     tables = build_tables(scene.mesh, cfg)
     vslabs = cluster.vertex_slabs(scene.mesh)
+    edge_block_fn = block_fn
+    if len(tables) == 4:
+        edge_block_fn = {cluster.cluster_sweep_mxu_plain:
+                         cluster.cluster_sweep_plain}.get(block_fn)
 
     def fn(scene, origin, direction, cfg, alive=None):
         return intersect_scene_sweep(scene, origin, direction, cfg,
@@ -241,8 +281,14 @@ def make_intersect_fn(scene: Scene, cfg: RenderConfig | None = None,
         return occluded_sweep(scene, origin, direction, max_dist, cfg,
                               tables=tables, block_fn=block_fn)
 
+    def edge_tri_fn(scene, origin, direction, cfg, pix_ang):
+        return tri_edge_candidate_sweep(scene, origin, direction, cfg,
+                                        pix_ang, vslabs=vslabs,
+                                        block_fn=edge_block_fn)
+
     fn.accepts_alive = True
     fn.occlusion_fn = occlusion_fn
+    fn.edge_tri_fn = edge_tri_fn
     return fn
 
 

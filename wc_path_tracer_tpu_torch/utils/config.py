@@ -1,17 +1,11 @@
 """Render configuration: the JAX package's ``RenderConfig``, field for field.
 
 Same fields, defaults and validation as ``wc_path_tracer_tpu/utils/config.py``
-so one config describes a render in either package.  Options whose code is
-not ported yet raise ``NotImplementedError`` where they are used, naming the
-ROADMAP item that ports them:
-
-- ``compact`` (render/golden.py ``trace_rays``; ROADMAP A9)
-- ``edge_grads`` (render/golden.py ``render_rows``; ROADMAP A10)
-
-``row_chunks`` only changed how the JAX package batched a frame (its pixels
-are identical either way); the port always renders one band.
-``compact_*``, ``tonemap``, ``gamma`` and ``bloom*`` belong to code that is
-not ported yet and are not read.
+so one config describes a render in either package.  ``row_chunks`` only
+changed how the JAX package batched a frame (its pixels are identical
+either way); the port always renders one band.  ``tonemap``, ``gamma`` and
+``bloom*`` belong to post-processing, which is not ported yet, and are not
+read.
 """
 
 from __future__ import annotations
@@ -46,10 +40,19 @@ class RenderConfig:
     bloom_threshold: float = 1.0
     bloom_knee: float = 0.1
     bloom_strength: float = 1.0
-    edge_grads: bool = False     # silhouette-gradient coverage estimator
-    compact: bool = False        # alive-ray stream compaction
-    compact_blocks: int = 16
-    compact_from: int | None = None
+    edge_grads: bool = False     # silhouette gradients by the coverage
+    #                              estimator (golden.trace_rays_edge): a
+    #                              half-pixel widened primary query, hit and
+    #                              background paths blended by the coverage,
+    #                              soft sphere shadows; ~2x the forward work
+    compact: bool = False        # alive-lane compaction of the later bounces
+    #                              (golden.trace_rays_compact): the same image,
+    #                              less work once lanes die (RR, sky misses)
+    compact_blocks: int = 16     # lanes are taken in blocks of
+    #                              num_rays / compact_blocks
+    compact_from: int | None = None  # first compacted bounce; None tracks
+    #                              the kill sources: rr_start_bounce + 1
+    #                              with RR, else 1
     ray_sort: str = "dynamic"    # ray regrouping before the cluster sweep:
     #                              "dynamic" = per-query Morton sort
     #                              (aliveness, direction octant, origin cell);
@@ -97,6 +100,12 @@ class RenderConfig:
             raise ValueError(
                 "edge_grads antialiases silhouettes analytically; combine "
                 "with pixel_jitter is unsupported")
+
+    @property
+    def compact_from_resolved(self) -> int:
+        if self.compact_from is not None:
+            return self.compact_from
+        return self.rr_start_bounce + 1 if self.use_rr else 1
 
     @property
     def num_rays(self) -> int:
