@@ -57,6 +57,20 @@ flags, image, loss and grads); 3 Adam steps of the lit bunny's vertices,
 whose loss must fall.  Its [compact] phase renders the JAX bench's bsdf_row
 (1024 x 1024 full-BSDF box, 8 bounces, RR; brute force) and the RR bunny
 through B1 with compaction off and on, with the alive share per bounce.
+Its [serve] phase drives the progressive ``Renderer`` (the user's serving
+entry point) on the 512 x 512 bunny through B1: 8 frames bit for bit with
+the chain of ``golden.render_step`` calls, a material edit and a camera
+move each resetting it to a fresh frame 0, bloom + tonemap + gamma output
+written to a PNG and read back, ms per frame, the profiled busy share and
+the share of a frame that rebuilds the sweep's tables; then the 1024 x 1024
+Cornell box (brute force).  Its [cli] phase runs ``python -m
+wc_path_tracer_tpu_torch`` in subprocesses: the glTF bunny at 512^2 through
+B1 with bloom, metrics and a checkpoint, resumed (its PNG equal to a
+Renderer's), through "pallas" (B3), ``invert`` on the 128^2 Cornell box
+and ``info``.  Its [dp] phase runs ``parallel/dp_check.py`` as 2 ranks on
+the card over gloo and 1 rank over NCCL: the Cornell 1024^2 bench step's
+loss and grads, the sharded 512^2 bunny render through B1 on each band, and
+the multi-device dry run's train steps, each against this process alone.
 The last two lines of standard output are a JSON line describing every
 ported kernel and {"ok": true, "device": {...}}.  Any failed check raises: the script then
 exits non-zero and prints no result.  It fails without a CUDA card and
@@ -76,20 +90,25 @@ import tempfile
 import time
 import warnings
 
+import numpy as np
 import torch
 
 from wc_path_tracer_tpu_torch import RenderConfig
+from wc_path_tracer_tpu_torch.io.image import read_png
 from wc_path_tracer_tpu_torch.kernels import build, cluster, traversal
 from wc_path_tracer_tpu_torch.models.builtin import (cornell_box_scene,
                                                      full_bsdf_scene)
-from wc_path_tracer_tpu_torch.models.gltf import parse_gltf
+from wc_path_tracer_tpu_torch.models.gltf import gltf_scene, parse_gltf
 from wc_path_tracer_tpu_torch.models.procedural import (
     BUNNY_GLB, bunny_gltf_scene, signed_zero_query, tie_heavy_query)
 from wc_path_tracer_tpu_torch.optim import params as reg
 from wc_path_tracer_tpu_torch.optim.inverse import (InverseRenderConfig,
                                                     run_inverse_rendering)
+from wc_path_tracer_tpu_torch.parallel import dp_check
 from wc_path_tracer_tpu_torch.parallel import render as prender
 from wc_path_tracer_tpu_torch.render import dispatch, golden, sweep, wavefront
+from wc_path_tracer_tpu_torch.render import renderer as renderer_module
+from wc_path_tracer_tpu_torch.render.renderer import Renderer
 from wc_path_tracer_tpu_torch.scene.camera import (camera_matrices,
                                                    primary_ray_directions)
 from wc_path_tracer_tpu_torch.scene.types import (MATERIAL_LAMBERTIAN,
@@ -131,6 +150,8 @@ EDGE_TRAINABLE = ("vertices", "camera_position")
 # B1 launches per lit-bunny edge_grads NEE step: the widened query, the
 # closest hits of both traced paths on bounces 1-4, their 2 x 5 shadow queries
 EDGE_LIT_B1 = 1 + 2 * 4 + 2 * 5
+SERVE_FRAMES = 8             # progressive frames of the [serve] Renderer
+ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNELS = {"B1": cluster.cluster_sweep_kernel,
            "B2": cluster.cluster_sweep_mxu_kernel,
            "B3": traversal.bvh_walk_kernel}
@@ -172,9 +193,13 @@ def device_profile(smi, label, fn, top=12):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = sync_time(fn)
+    # device events of the kernels; a named stage (record_function, e.g.
+    # Renderer.step's "render_step") also shows as a device range and is
+    # left out
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation),
                   key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     if not rows:
@@ -1502,6 +1527,325 @@ def compact_phase(smi, scene, mats):
     return out
 
 
+def serve_phase(smi, scene, cam, cscene, ccam):
+    """The [serve] phase: the progressive ``Renderer`` at full width (the
+    512^2 bunny through dispatch "auto" -> B1, then the 1024^2 Cornell box
+    through brute force): 8 frames bit for bit with the chain of
+    ``golden.render_step`` calls, edits that reset it to a fresh frame 0,
+    bloom + tonemap + gamma post-processing written to a PNG and read back
+    -> its JSON record."""
+    cfg = RenderConfig(**BUNNY, bloom=True, tonemap="aces", gamma=2.2)
+    mats = camera_matrices(cam, 1.0)
+    with torch.no_grad():
+        want = None
+        for f in range(SERVE_FRAMES):
+            want = golden.render_step(scene, mats, cfg, f, want)
+    r = Renderer(scene, cam, cfg)
+    check(r.device.type == "cuda", f"[serve] the Renderer defaults to the "
+          f"card ({r.device})")
+    torch.cuda.synchronize()
+    reset_counts()
+    times = []
+    for _ in range(SERVE_FRAMES):
+        _, s = sync_time(lambda: r.step(1))
+        times.append(s * 1e3)
+    counts = read_counts()
+    check(counts == {"B1": 5 * SERVE_FRAMES, "B2": 0, "B3": 0},
+          f"[serve] {SERVE_FRAMES} Renderer steps launched {counts} (B1 5 "
+          "per frame)")
+    check(r.frame_count == SERVE_FRAMES and torch.equal(r.image, want),
+          f"[serve] {SERVE_FRAMES} Renderer steps equal the chain of "
+          "golden.render_step calls bit for bit")
+    check_image(r.image, "[serve] bunny")
+    frame_ms = sum(times[1:]) / (len(times) - 1)
+
+    # the sweep's tables, rebuilt by dispatch on every frame
+    sweep.make_intersect_fn(scene, cfg)
+    _, s = sync_time(lambda: [sweep.make_intersect_fn(scene, cfg)
+                              for _ in range(5)])
+    tables_ms = s / 5 * 1e3
+    profile = device_profile(smi, "[serve] bunny 512^2 Renderer.step",
+                             lambda: r.step(1), top=8)
+
+    # every edit resets accumulation: the next image is a fresh frame 0
+    edits = {}
+    for label, edit in (
+            ("update_material", lambda: r.update_material(
+                0, albedo=(0.9, 0.2, 0.2))),
+            ("set_camera", lambda: r.set_camera(
+                position=(cam.position + torch.tensor(
+                    [0.05, 0.0, 0.0], device="cuda")).tolist()))):
+        edit()
+        check(r.frame_count == 0, f"[serve] {label} resets the frame counter")
+        with torch.no_grad():
+            fresh = golden.render_step(r.scene, camera_matrices(r.camera,
+                                                                1.0),
+                                       cfg, 0, None)
+        edits[label] = bool(torch.equal(r.step(1), fresh))
+        check(edits[label], f"[serve] after {label} the next image equals a "
+              "fresh frame 0 bit for bit")
+
+    # post-processing: bloom, ACES, gamma 2.2 -> uint8 -> PNG -> read back
+    r.output()
+    out, s = sync_time(r.output)
+    post_ms = s * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve.png")
+        r.save_png(path)
+        back = read_png(path)
+    check(out.shape == (512, 512, 3) and out.dtype == np.uint8
+          and np.array_equal(back, out), "[serve] output() (bloom, aces, "
+          "gamma 2.2) is 512 x 512 uint8 and its PNG reads back the same")
+    with torch.no_grad():
+        cpu = renderer_module._finalize(
+            r.image.cpu(), "aces", 2.2, True, cfg.bloom_threshold,
+            cfg.bloom_knee, cfg.bloom_strength).numpy()
+    lsb = int(np.abs(cpu.astype(int) - out.astype(int)).max())
+    check(lsb <= 1, f"[serve] the card's post-processing is within {lsb} "
+          "LSB of the CPU's")
+    print(f"[serve] bunny 512^2 Renderer ({SERVE_FRAMES} frames, B1): "
+          f"{frame_ms:.2f} ms/frame after the first (host clock, "
+          f"synchronized; {min(times):.2f}-{max(times):.2f}), "
+          f"{segments_per_s(cfg, frame_ms / 1e3):.2f} Mrays/s; profiled "
+          f"{profile['device_ms'] / profile['wall_ms']:.1%} busy; the "
+          f"sweep's tables (built per frame) {tables_ms:.2f} ms = "
+          f"{tables_ms / frame_ms:.1%} of a frame; output() {post_ms:.2f} "
+          f"ms; launches {counts}, on {smi}", flush=True)
+
+    ccfg = RenderConfig(**CORNELL)
+    rc = Renderer(cscene, ccam, ccfg)
+    rc.step(1)
+    reset_counts()
+    _, s = sync_time(lambda: rc.step(3))
+    ccounts = read_counts()
+    check(ccounts == {"B1": 0, "B2": 0, "B3": 0} and rc.frame_count == 4,
+          "[serve] Cornell 1024^2 Renderer steps launch no kernel (brute "
+          "force)")
+    check(bool(torch.isfinite(rc.image).all())
+          and 0.01 < float(rc.image.mean()) < 3,
+          f"[serve] Cornell image finite, mean {float(rc.image.mean()):.4f}")
+    cornell_ms = s / 3 * 1e3
+    cprofile = device_profile(smi, "[serve] cornell 1024^2 Renderer.step",
+                              lambda: rc.step(1), top=6)
+    print(f"[serve] Cornell 1024^2 Renderer (brute force): {cornell_ms:.2f} "
+          f"ms/frame (3 frames after 1), profiled "
+          f"{cprofile['device_ms'] / cprofile['wall_ms']:.1%} busy, on {smi}",
+          flush=True)
+    return dict(frame_ms=frame_ms, step_ms=times, launches=counts,
+                tables_ms=tables_ms, tables_share=tables_ms / frame_ms,
+                post_ms=post_ms, post_lsb_vs_cpu=lsb, edits=edits,
+                profile=profile, cornell_frame_ms=cornell_ms,
+                cornell_profile=cprofile, card=smi)
+
+
+def run_cli(args, timeout=600):
+    """``python -m wc_path_tracer_tpu_torch ARGS`` in a subprocess from the
+    repository root -> (stdout, stderr, seconds); a non-zero exit fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "wc_path_tracer_tpu_torch",
+                           *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"[cli] {' '.join(args[:3])} ... exits 0 "
+          f"({s:.1f} s)" + ("" if proc.returncode == 0
+                            else f":\n{proc.stderr[-3000:]}"))
+    return proc.stdout, proc.stderr, s
+
+
+def frame_records(path, n, per_frame, what):
+    recs = [json.loads(line) for line in open(path)]
+    check(len(recs) == n and all(
+        0.0 < rec["alive_fraction"] <= 1.0 and rec["kernel_launches"]
+        == per_frame for rec in recs),
+        f"[cli] {what}: {n} frame records, alive_fraction in (0, 1], "
+        f"launches {per_frame} per frame")
+    return recs
+
+
+def cli_phase(smi, kind):
+    """The [cli] phase: the command-line interface in subprocesses, on the
+    card by default: the glTF bunny at 512^2 (B1) with bloom, metrics and a
+    checkpoint, resumed for 2 more frames and held against a Renderer; the
+    same through "pallas" (B3); 5 inverse-rendering steps of the 128^2
+    Cornell box; ``info`` -> its JSON record."""
+    bunny = ["--gltf", BUNNY_GLB, "--width", "512", "--height", "512",
+             "--bloom"]
+    b1 = {"cluster_sweep": 5, "cluster_sweep_mxu": 0, "bvh_walk": 0}
+    b3 = {"cluster_sweep": 0, "cluster_sweep_mxu": 0, "bvh_walk": 5}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        p = functools.partial(os.path.join, tmp)
+        _, _, s = run_cli(["render", *bunny, "--frames", "4", "--metrics",
+                           p("m1.jsonl"), "--checkpoint", p("ck"), "--out",
+                           p("a.png")])
+        first = frame_records(p("m1.jsonl"), 4, b1, "bunny render")
+        _, err, s2 = run_cli(["render", *bunny, "--frames", "2", "--resume",
+                              p("ck"), "--metrics", p("m2.jsonl"), "--out",
+                              p("b.png")])
+        resumed = frame_records(p("m2.jsonl"), 2, b1, "resumed render")
+        check("resumed at frame 4" in err and [r["frame"] for r in resumed]
+              == [5, 6], "[cli] the resume continues at frame 5")
+        scene, cam = gltf_scene(BUNNY_GLB, device="cuda")
+        want = Renderer(scene, cam, RenderConfig(**BUNNY, bloom=True))
+        want.step(6)
+        png = read_png(p("b.png"))
+        check(png.shape == (512, 512, 3) and np.array_equal(
+            png, want.output()), "[cli] the resumed PNG equals a Renderer's "
+            "6-frame output bit for bit")
+        _, _, s3 = run_cli(["render", *bunny, "--renderer", "pallas",
+                            "--frames", "2", "--metrics", p("m3.jsonl"),
+                            "--out", p("c.png")])
+        pallas = frame_records(p("m3.jsonl"), 2, b3, "'pallas' render")
+        check(read_png(p("c.png")).shape == (512, 512, 3),
+              "[cli] the 'pallas' PNG is 512 x 512")
+        _, err, s4 = run_cli(["invert", "--scene", "cornell", "--width",
+                              "128", "--height", "128", "--nee", "--steps",
+                              "5", "--log-every", "1", "--metrics",
+                              p("m4.jsonl")])
+        losses = [json.loads(line)["loss"] for line in open(p("m4.jsonl"))]
+        check(len(losses) == 5 and losses[-1] < losses[0],
+              "[cli] invert: 5 steps, the final loss is below the first: "
+              + " -> ".join(f"{x:.6g}" for x in losses))
+        info, _, s5 = run_cli(["info"])
+        check(kind in info and "rank: 0/1" in info,
+              f"[cli] info names the card: {info.strip().splitlines()[0]}")
+    for label, recs, secs in (("bunny render", first, s),
+                              ("bunny resumed", resumed, s2),
+                              ("bunny 'pallas' render", pallas, s3)):
+        ms = [r["seconds"] * 1e3 for r in recs]
+        out[label] = dict(frame_ms=ms, process_s=secs,
+                          launches={k: sum(r["kernel_launches"][k]
+                                           for r in recs) for k in b1},
+                          alive_fraction=recs[0]["alive_fraction"])
+        print(f"[cli] {label}: ms per frame {[round(x, 2) for x in ms]} "
+              f"(host clock, synchronized), alive fraction "
+              f"{recs[0]['alive_fraction']}, process {secs:.1f} s, launches "
+              f"{out[label]['launches']}, on {smi}", flush=True)
+    out["invert"] = dict(losses=losses, process_s=s4)
+    out["info"] = dict(stdout=info, process_s=s5)
+    return out
+
+
+def dp_tasks():
+    dry = dict(INVERSE, max_bounces=2)
+    return [
+        dict(name="bench", kind="loss_grad", scene="cornell", cfg=CORNELL,
+             trainable=list(prender.BENCH_TRAINABLE), renderer="auto",
+             frame=0, timed=3),
+        dict(name="render_bunny", kind="render", scene="bunny_gltf",
+             cfg=BUNNY, renderer="auto", frame=1),
+        dict(name="dryrun_cornell", kind="train", scene="cornell", cfg=dry,
+             trainable=list(DRY_RUN_TRAINABLE) + ["sphere_position"],
+             renderer="auto", lr=1e-2),
+        dict(name="dryrun_sweep", kind="train", scene="bunny_like2",
+             cfg=dict(dry, sky="gradient"),
+             trainable=["albedo", "vertices", "sphere_position"],
+             renderer="auto", lr=1e-2),
+    ]
+
+
+def dp_phase(smi):
+    """The [dp] phase: data parallelism on the one card.  Two ranks on
+    cuda:0 over gloo (NCCL refuses two ranks on one card; gloo's
+    collectives of CUDA tensors go through host copies,
+    ``parallel/render.py::host_staged``), then one rank over NCCL so its
+    all_reduce runs too.  Each is held against the same tasks in this
+    process alone -> its JSON record."""
+    torch.cuda.empty_cache()     # leave the card's memory to the ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        tasks = dp_tasks()
+        single = {t["name"]: dp_check.run_task(t, "cuda") for t in tasks}
+        t0 = time.perf_counter()
+        ranks = dp_check.run_ranks(tasks, 2, "gloo", "cuda:0",
+                                   os.path.join(tmp, "gloo"))
+        gloo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (nccl,) = dp_check.run_ranks(tasks[:1], 1, "nccl", "cuda:0",
+                                     os.path.join(tmp, "nccl"))
+        nccl_s = time.perf_counter() - t0
+    staged = ranks[0]["device"].startswith("cuda")
+    print(f"[dp] ran 2 ranks ({ranks[0]['backend']} on {ranks[0]['device']}"
+          f", {ranks[0]['device_name']}"
+          + (", their collectives of CUDA tensors staged through host copies"
+             if staged else "")
+          + f") in {gloo_s:.1f} s and 1 rank ({nccl['backend']}) in "
+          f"{nccl_s:.1f} s, on {smi}", flush=True)
+    check([(r["backend"], r["world_size"]) for r in ranks + [nccl]]
+          == [("gloo", 2), ("gloo", 2), ("nccl", 1)],
+          "[dp] 2 gloo ranks and 1 NCCL rank on the card")
+
+    want = single["bench"]
+    worst = {}
+    for r in ranks:
+        got = r["bench"]
+        rel = abs(float(got["loss"]) - float(want["loss"])) / float(
+            want["loss"])
+        check(rel <= 1e-6, f"[dp] rank {r['rank']}: Cornell 1024^2 bench "
+              f"loss {float(got['loss']):.8g} within {rel:.3g} <= 1e-6 of "
+              "the single process's")
+        for k, g in want["grads"].items():
+            err = float((got["grads"][k] - g).abs().max())
+            scale = float(g.abs().max())
+            rel = err / scale if scale else (0.0 if err == 0.0 else math.inf)
+            worst[k] = max(worst.get(k, 0.0), rel)
+    check(all(e <= 1e-5 for e in worst.values()), "[dp] every bench grad "
+          "leaf within 1e-5 of its max of the single process's: "
+          + ", ".join(f"{k} {e:.3g}" for k, e in worst.items()))
+    check(torch.equal(nccl["bench"]["loss"], want["loss"]) and all(
+        torch.equal(nccl["bench"]["grads"][k], g)
+        for k, g in want["grads"].items()),
+          "[dp] the NCCL world-size-1 group's loss and grads equal the "
+          "single process's bit for bit")
+
+    img = single["render_bunny"]["image"]
+    shares = [float((r["render_bunny"]["image"] == img).all(-1).float()
+                    .mean()) for r in ranks]
+    check(all(s >= 0.999 for s in shares), f"[dp] the gathered 512^2 bunny "
+          f"(B1 on each 256-row band) equals the single-process frame bit "
+          f"for bit on {shares} of pixels (>= 0.999)")
+    launches = {r["rank"]: {t: r[t]["launches"] for t in
+                            ("render_bunny", "dryrun_sweep")} for r in ranks}
+    check(all(v["render_bunny"]["B1"] == 5 and v["dryrun_sweep"]["B1"] > 0
+              for v in launches.values()),
+          f"[dp] each rank's band went through B1: {launches}")
+
+    for name in ("dryrun_cornell", "dryrun_sweep"):
+        r0, r1 = (r[name] for r in ranks)
+        finite = all(bool(torch.isfinite(g).all()) for g in
+                     r0["grads"].values())
+        check(finite and float(r0["loss_after"]) < float(r0["loss_before"]),
+              f"[dp] {name}: every grad leaf finite, one Adam step over 2 "
+              f"ranks lowers the loss {float(r0['loss_before']):.6g} -> "
+              f"{float(r0['loss_after']):.6g}")
+        check(all(torch.equal(r0["params"][k], r1["params"][k])
+                  for k in r0["params"]),
+              f"[dp] {name}: both ranks hold equal parameters after the step")
+    single_ms = want["step_ms"]
+    rank_ms = [r["bench"]["step_ms"] for r in ranks]
+    print(f"[dp] Cornell 1024^2 bench fwd+bwd step: single process "
+          f"{[round(x, 2) for x in single_ms]} ms; 2 ranks on one card "
+          f"(512 rows each) {[[round(x, 2) for x in m] for m in rank_ms]} "
+          f"ms (host clock, synchronized; both ranks share the card, so this "
+          f"is no scaling figure), on {smi}", flush=True)
+    return dict(bench_loss=float(want["loss"]), grad_rel_err=worst,
+                bunny_bitwise_share=shares, launches=launches,
+                single_step_ms=single_ms, rank_step_ms=rank_ms,
+                dryrun={n: [float(ranks[0][n]["loss_before"]),
+                            float(ranks[0][n]["loss_after"])]
+                        for n in ("dryrun_cornell", "dryrun_sweep")},
+                gloo_s=gloo_s, nccl_s=nccl_s, card=smi)
+
+
+def slice_launches(serving, cli, dp, key, cli_key):
+    """A kernel's launches in the [serve], [cli] and [dp] runs."""
+    return dict(
+        serve_launches=serving["launches"][key],
+        cli_launches={label: rec["launches"][cli_key]
+                      for label, rec in cli.items() if "launches" in rec},
+        dp_launches={rank: {task: n[key] for task, n in per.items()}
+                     for rank, per in dp["launches"].items()})
+
+
 def shadow_entry(train, key):
     """A kernel's NEE shadow-query keys for the kernels line: ms per launch
     and bound averaged over the lit bunny's five shadow queries, and its
@@ -1749,6 +2093,14 @@ def main() -> int:
     b2["edge_launches"] = {label: c["launches"]["B2"]
                            for label, c in edge["cells"].items()}
 
+    # -- 12. the serving entry points, the CLI and data parallelism -------
+    serving = serve_phase(smi, scene, cam, cscene, ccam)
+    cli = cli_phase(smi, kind)
+    dp = dp_phase(smi)
+    for entry, key, cli_key in ((b2, "B2", "cluster_sweep_mxu"),
+                                (b3, "B3", "bvh_walk")):
+        entry.update(slice_launches(serving, cli, dp, key, cli_key))
+
     print(json.dumps({"kernels": [{
         "name": "cluster_sweep",
         "route": "cuda",
@@ -1782,6 +2134,10 @@ def main() -> int:
                      "frame's primary rays (1 launch per frame)",
         "edge": edge,
         "compact": compact,
+        **slice_launches(serving, cli, dp, "B1", "cluster_sweep"),
+        "serve": serving,
+        "cli": cli,
+        "dp": dp,
     }, b2, b3]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -636,3 +636,66 @@ def test_compact_frame_on_card_equals_plain(renderer):
         assert float(differ.float().mean()) <= 0.01
     else:
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_renderer_step_on_card_equals_render_step():
+    """``Renderer.step`` on the card (dispatch "auto" -> the sweep, B1) is
+    the chain of ``golden.render_step`` calls, bit for bit, and an edit
+    resets it to a fresh frame 0."""
+    _need_card()
+    from wc_path_tracer_tpu_torch.render.renderer import Renderer
+    scene, cam = bunny_like_scene(2, device="cuda")
+    cfg = RenderConfig(width=64, height=64, max_bounces=2)
+    r = Renderer(scene, cam, cfg)
+    assert r.device.type == "cuda" and r.image.is_cuda
+    before = cluster.cluster_sweep_kernel.launches
+    r.step(2)
+    assert cluster.cluster_sweep_kernel.launches - before == 2 * 3
+    mats = camera_matrices(cam, 1.0)
+    with torch.no_grad():
+        want = golden.render_step(scene, mats, cfg, 1, golden.render_step(
+            scene, mats, cfg, 0, None))
+    assert torch.equal(r.image, want)
+    r.update_material(0, albedo=(0.9, 0.1, 0.1))
+    assert r.frame_count == 0
+    with torch.no_grad():
+        want = golden.render_step(r.scene, mats, cfg, 0, None)
+    assert torch.equal(r.step(1), want)
+
+
+@pytest.mark.gpu
+def test_post_on_card_matches_cpu():
+    """Every tonemap, bloom and the composite on the card against the same
+    functions on the CPU (rtol 1e-5)."""
+    _need_card()
+    from wc_path_tracer_tpu_torch.ops import bloom
+    from wc_path_tracer_tpu_torch.ops import tonemap as tm
+    r = np.random.default_rng(0)
+    img = torch.tensor(r.uniform(0.0, 6.0, (37, 53, 3)), dtype=torch.float32)
+    for name in tm.TONEMAPS:
+        torch.testing.assert_close(tm.apply(img.cuda(), name).cpu(),
+                                   tm.apply(img, name), rtol=1e-5, atol=1e-6,
+                                   msg=name)
+    for fn in (bloom.bloom, bloom.bloom_pyramid, bloom.composite):
+        torch.testing.assert_close(fn(img.cuda()).cpu(), fn(img), rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_cli_render_on_card(tmp_path):
+    """``python -m wc_path_tracer_tpu_torch render`` runs on the card by
+    default and exits 0."""
+    _need_card()
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path / "a.png")
+    proc = subprocess.run(
+        [sys.executable, "-m", "wc_path_tracer_tpu_torch", "render",
+         "--scene", "bunny", "--width", "64", "--height", "64", "--frames",
+         "2", "--bloom", "--out", out], cwd=root, capture_output=True,
+        text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "on cuda" in proc.stderr and os.path.exists(out)

@@ -1,5 +1,6 @@
-"""Inverse rendering: optimize scene parameters from target images on one
-card (port of the JAX package's optim/inverse.py).
+"""Inverse rendering: optimize scene parameters from target images, on one
+process or over a process group (port of the JAX package's
+optim/inverse.py).
 
 Built on render/golden.py's differentiable transport, optim/params.py's
 trainable registry and parallel/render.py's train step: ``torch.optim.Adam``
@@ -9,7 +10,9 @@ with the registry's range projection after each step.  Checkpoint/resume:
 under optax's leaf names (``opt_state/0/count``, ``opt_state/0/mu/<name>``,
 ``opt_state/0/nu/<name>``), so a run the JAX package checkpointed resumes
 here; ``resume=True`` continues the same trajectory (the PRNG frame is the
-step index, so the stochastic gradients repeat).
+step index, so the stochastic gradients repeat).  Over a group, every
+rank runs the same steps on the same summed grads; rank 0 alone writes the
+checkpoints and every rank resumes from them.
 """
 
 from __future__ import annotations
@@ -23,8 +26,10 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from wc_path_tracer_tpu_torch.optim import params as reg
+from wc_path_tracer_tpu_torch.parallel import mesh as pmesh
 from wc_path_tracer_tpu_torch.parallel import render as prender
 from wc_path_tracer_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 from wc_path_tracer_tpu_torch.utils.config import RenderConfig
@@ -43,24 +48,27 @@ class InverseRenderConfig:
 
 def run_inverse_rendering(scene, camera, target, render_cfg: RenderConfig,
                           inv_cfg: Optional[InverseRenderConfig] = None, *,
-                          renderer: str = "golden",
+                          renderer: str = "golden", group=None,
                           log_fn: Optional[Callable] = None,
                           checkpoint_dir: Optional[str] = None,
                           checkpoint_every: int = 0,
                           resume: bool = False):
     """Optimize ``inv_cfg.trainable`` of (scene, camera) so renders match
     ``target`` (H, W, 3), through the backend ``renderer`` names (any name
-    dispatch.get_render_frame takes).
+    dispatch.get_render_frame takes), over the process group ``group``
+    (None: this process alone; parallel/mesh.py).
 
     ``camera`` is a Camera (required for camera_* trainables; the matrices
     are rebuilt differentiably each step) or prebuilt CameraMatrices.
     Returns (optimized scene, optimized camera, history); history holds a
-    dict (step, loss, grad_norm, wall_s) per logged step.
+    dict (step, loss, grad_norm, wall_s) per logged step; step, loss and
+    grad_norm are the same on every rank, wall_s is the rank's own clock.
     """
     inv_cfg = inv_cfg or InverseRenderConfig()
     trainable = reg.validate(inv_cfg.trainable)
     adam = functools.partial(torch.optim.Adam, lr=inv_cfg.learning_rate)
-    step_fn = prender.make_train_step(render_cfg, adam, trainable, renderer)
+    step_fn = prender.make_train_step(render_cfg, adam, trainable, renderer,
+                                      group)
     state = prender.init_train_state(scene, camera, trainable, adam)
     start_step = 0
     if resume:
@@ -85,14 +93,21 @@ def run_inverse_rendering(scene, camera, target, render_cfg: RenderConfig,
                 log_fn(rec)
         if (checkpoint_dir and checkpoint_every
                 and (step + 1) % checkpoint_every == 0):
-            save_training_state(checkpoint_dir, state.params,
-                                state.optimizer, step + 1)
+            _save(checkpoint_dir, state, step + 1, group)
 
     if checkpoint_dir:
-        save_training_state(checkpoint_dir, state.params, state.optimizer,
-                            inv_cfg.steps)
+        _save(checkpoint_dir, state, inv_cfg.steps, group)
     scene, camera = reg.apply_params(scene, camera, state.params)
     return scene, camera, history
+
+
+def _save(directory, state, step: int, group):
+    """Rank 0 writes the training state; the other ranks wait for it, so a
+    resume on any rank reads a whole checkpoint."""
+    if pmesh.rank(group) == 0:
+        save_training_state(directory, state.params, state.optimizer, step)
+    if group is not None:
+        dist.barrier(group=group)
 
 
 def _adam_tree(params: dict, optimizer: torch.optim.Adam) -> dict:

@@ -1,11 +1,18 @@
-"""The training loss and step on one process (port of the single-process
-part of the JAX package's parallel/render.py).
+"""Data-parallel rendering and training over a process group (port of the
+JAX package's parallel/render.py).
 
-The JAX package shards the image's rows over a device mesh and all-reduces
-the parameter gradients; here one process renders the whole frame.  The
-loss is a sum divided by the *global* pixel count, so the split over ranks
-(ROADMAP A11) adds a row band per rank and an ``all_reduce`` of the grads
-and changes no convention.
+Rays are the data axis: the image's rows are split into one band per rank
+and the scene is replicated, so a forward render needs no communication
+until the bands are gathered.  Pixel seeds come from *global* pixel indices
+(``golden.render_rows``), so a band equals the same rows of a
+single-process frame.  The only collective of training is the sum of the
+grads (and of the loss) over the ranks, after each rank's backward.
+
+The one grad-scaling convention of the JAX package: loss and grads are
+those of the MEAN squared error over the global pixels, each rank's sum
+divided by the global pixel count inside the differentiated scope.  A
+``group`` of None is this process alone, and the single-process
+``scene_loss_grad`` is that case of ``sharded_scene_loss_grad``.
 """
 
 from __future__ import annotations
@@ -13,8 +20,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from wc_path_tracer_tpu_torch.optim import params as reg
+from wc_path_tracer_tpu_torch.parallel import mesh as pmesh
 from wc_path_tracer_tpu_torch.render import dispatch, golden
 from wc_path_tracer_tpu_torch.scene.camera import Camera, camera_matrices
 from wc_path_tracer_tpu_torch.utils.config import RenderConfig
@@ -22,31 +31,94 @@ from wc_path_tracer_tpu_torch.utils.config import RenderConfig
 BENCH_TRAINABLE = ("albedo", "emission", "emission_strength", "roughness")
 
 
-def _loss_rows(scene, mats, cfg: RenderConfig, frame_count: int, target,
-               renderer: str = "golden"):
-    """Sum of squared errors of the frame against ``target``.  ``renderer``
-    is any name dispatch.get_render_frame takes, or a function (scene, cfg)
-    -> intersect_fn (e.g. the sweep through the plain twin).  The caller
-    divides by the global pixel count."""
-    fn = renderer(scene, cfg) if callable(renderer) \
+def _band(cfg: RenderConfig, world: int) -> int:
+    if cfg.height % world:
+        raise ValueError(
+            f"height {cfg.height} not divisible by the world size {world}; "
+            "pad the image or choose a divisible height")
+    return cfg.height // world
+
+
+def host_staged(t: torch.Tensor, group) -> bool:
+    """Whether a collective of ``t`` over ``group`` goes through a host
+    copy: gloo reduces host memory, so CUDA tensors on a gloo group (several
+    ranks sharing one card) are copied to the host and back."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum of ``t`` over the ranks of ``group``, in place."""
+    if host_staged(t, group):
+        h = t.cpu()
+        dist.all_reduce(h, group=group)
+        return t.copy_(h)
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def gather_rows(rows: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's band of rows (the same shape on each), stacked in rank
+    order, on every rank."""
+    if group is None:
+        return rows
+    n = pmesh.world_size(group)
+    staged = host_staged(rows, group)
+    src = rows.cpu() if staged else rows.contiguous()
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.to(rows.device) if staged else out
+
+
+def _intersect_fn(renderer, scene, cfg):
+    """``renderer`` is any name dispatch.get_render_frame takes, or a
+    function (scene, cfg) -> intersect_fn (e.g. the sweep through the plain
+    twin)."""
+    return renderer(scene, cfg) if callable(renderer) \
         else dispatch.get_intersect_fn(renderer, scene, cfg)
-    img = golden.render_frame(scene, mats, cfg, frame_count, intersect_fn=fn)
-    return torch.sum((img - target) ** 2)
 
 
-def scene_loss_grad(cfg: RenderConfig, trainable, renderer: str = "golden"):
-    """(scene, camera, frame_count, target) -> (loss, grads) for any
-    registered trainable set (optim/params.py); ``grads`` is keyed by
-    trainable name.
+def _loss_rows(scene, mats, cfg: RenderConfig, frame_count: int, y0: int,
+               band: int, target_rows, renderer="golden"):
+    """Sum of squared errors of rows [y0, y0 + band) against
+    ``target_rows``; the caller divides by the global pixel count."""
+    img = golden.render_rows(scene, mats, cfg, frame_count, y0, band,
+                             _intersect_fn(renderer, scene, cfg))
+    return torch.sum((img - target_rows) ** 2)
 
-    ``camera`` is a Camera (its matrices are rebuilt differentiably inside
-    the loss, so camera parameters train too) or prebuilt CameraMatrices (a
-    fixed camera).  The one grad-scaling convention of the JAX package:
-    loss and grads are those of the MEAN squared error over the global
-    pixels, normalised inside the differentiated scope.  The trainable
+
+def sharded_render_frame(cfg: RenderConfig, renderer="golden", group=None):
+    """(scene, mats, frame_count) -> the full (H, W, 3) frame on every rank
+    of ``group``: each rank renders its band of H / world rows through
+    ``renderer`` (as ``_intersect_fn``), then the bands are gathered."""
+    band = _band(cfg, pmesh.world_size(group))
+    y0 = pmesh.rank(group) * band
+
+    @torch.no_grad()
+    def render(scene, mats, frame_count):
+        rows = golden.render_rows(scene, mats, cfg, frame_count, y0, band,
+                                  _intersect_fn(renderer, scene, cfg))
+        return gather_rows(rows, group)
+
+    return render
+
+
+def sharded_scene_loss_grad(cfg: RenderConfig, trainable,
+                            renderer="golden", group=None):
+    """(scene, camera, frame_count, target) -> (loss, grads) over ``group``
+    for any registered trainable set (optim/params.py); ``grads`` is keyed
+    by trainable name, ``target`` is the full (H, W, 3) image.
+
+    Each rank renders its band, takes its sum of squared errors divided by
+    the global pixel count, runs the backward, then the flattened grads
+    and the loss are each summed over the ranks by one ``all_reduce``: every
+    rank returns the full image's mean loss and its grads.  ``camera`` is a
+    Camera (its matrices are rebuilt differentiably inside the loss, so
+    camera parameters train too) or prebuilt CameraMatrices.  The trainable
     tensors of ``scene``/``camera`` are not changed; the grads are taken
     with respect to detached copies of them."""
     trainable = reg.validate(trainable)
+    band = _band(cfg, pmesh.world_size(group))
+    y0 = pmesh.rank(group) * band
     npix = cfg.height * cfg.width * 3
     aspect = cfg.width / cfg.height
 
@@ -57,14 +129,27 @@ def scene_loss_grad(cfg: RenderConfig, trainable, renderer: str = "golden"):
         s, cam = reg.apply_params(scene, camera, params)
         mats = camera_matrices(cam, aspect) if isinstance(cam, Camera) \
             else cam
-        loss = _loss_rows(s, mats, cfg, frame_count, target, renderer) / npix
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True)
-        return loss.detach(), {
-            k: torch.zeros_like(p) if g is None else g
-            for (k, p), g in zip(params.items(), grads)}
+        loss = _loss_rows(s, mats, cfg, frame_count, y0, band,
+                          target[y0:y0 + band], renderer) / npix
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params.values(), torch.autograd.grad(
+                     loss, list(params.values()), allow_unused=True))]
+        loss = loss.detach()
+        if group is not None:
+            flat = _all_reduce(torch.cat([g.reshape(-1) for g in grads]),
+                               group)
+            grads = [g.view_as(p) for g, p in zip(
+                flat.split([p.numel() for p in grads]), grads)]
+            loss = _all_reduce(loss.reshape(1), group)[0]
+        return loss, dict(zip(params, grads))
 
     return loss_grad
+
+
+def scene_loss_grad(cfg: RenderConfig, trainable, renderer="golden"):
+    """The single-process loss and grads: ``sharded_scene_loss_grad`` of
+    this process alone (the whole frame as one band)."""
+    return sharded_scene_loss_grad(cfg, trainable, renderer)
 
 
 @dataclasses.dataclass
@@ -88,15 +173,17 @@ def init_train_state(scene, camera, trainable, optimizer) -> TrainState:
 
 
 def make_train_step(cfg: RenderConfig, optimizer, trainable=BENCH_TRAINABLE,
-                    renderer: str = "golden"):
-    """One inverse-rendering step: render, backward, optimizer update and
-    range projection.  Returns step(scene, camera, state, frame_count,
+                    renderer="golden", group=None):
+    """One inverse-rendering step over ``group``: render the rank's band,
+    backward, grads summed over the ranks, then the optimizer update and
+    range projection on every rank from the same grads, so the parameters
+    stay replicated.  Returns step(scene, camera, state, frame_count,
     target) -> (scene, camera, state, loss); ``state`` is None on the first
     call (the step then builds it with ``init_train_state``) and the
     returned one after.  The returned scene and camera carry the updated
     parameters.  Grads are mean-scaled (``scene_loss_grad``)."""
     trainable = reg.validate(trainable)
-    loss_grad = scene_loss_grad(cfg, trainable, renderer)
+    loss_grad = sharded_scene_loss_grad(cfg, trainable, renderer, group)
 
     def step(scene, camera, state, frame_count, target):
         if state is None:

@@ -40,6 +40,10 @@ class Camera:
         return Camera(position=t(position), yaw=t(yaw), pitch=t(pitch),
                       fov=t(fov))
 
+    def to(self, device) -> "Camera":
+        return Camera(**{f.name: getattr(self, f.name).to(device)
+                         for f in dataclasses.fields(self)})
+
     @property
     def direction(self) -> torch.Tensor:
         """yaw/pitch -> unit direction (PathTracingRenderer.jai:23-26)."""

@@ -4,8 +4,8 @@ Same fields, defaults and validation as ``wc_path_tracer_tpu/utils/config.py``
 so one config describes a render in either package.  ``row_chunks`` only
 changed how the JAX package batched a frame (its pixels are identical
 either way); the port always renders one band.  ``tonemap``, ``gamma`` and
-``bloom*`` belong to post-processing, which is not ported yet, and are not
-read.
+``bloom*`` are read by post-processing (``Renderer.output``), not by the
+transport.
 """
 
 from __future__ import annotations
