@@ -96,6 +96,8 @@ import torch
 from wc_path_tracer_tpu_torch import RenderConfig
 from wc_path_tracer_tpu_torch.io.image import read_png
 from wc_path_tracer_tpu_torch.kernels import build, cluster, traversal
+from wc_path_tracer_tpu_torch.kernels.launches import (KERNELS, read_counts,
+                                                       reset_counts)
 from wc_path_tracer_tpu_torch.models.builtin import (cornell_box_scene,
                                                      full_bsdf_scene)
 from wc_path_tracer_tpu_torch.models.gltf import gltf_scene, parse_gltf
@@ -152,9 +154,6 @@ EDGE_TRAINABLE = ("vertices", "camera_position")
 EDGE_LIT_B1 = 1 + 2 * 4 + 2 * 5
 SERVE_FRAMES = 8             # progressive frames of the [serve] Renderer
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNELS = {"B1": cluster.cluster_sweep_kernel,
-           "B2": cluster.cluster_sweep_mxu_kernel,
-           "B3": traversal.bvh_walk_kernel}
 
 
 def check(ok, what):
@@ -821,15 +820,6 @@ def lit_bunny_scene(max_blas_tris=None):
                           emission_strength=1.0)
     b.add_sphere((-2.0, 3.0, 1.0), 0.5, lamp)
     return b.build("cuda")
-
-
-def reset_counts():
-    for k in KERNELS.values():
-        k.launches = 0
-
-
-def read_counts():
-    return {name: k.launches for name, k in KERNELS.items()}
 
 
 def grad_stats(grads):
@@ -1741,14 +1731,14 @@ def dp_tasks():
              cfg=dict(dry, sky="gradient"),
              trainable=["albedo", "vertices", "sphere_position"],
              renderer="auto", lr=1e-2),
+        dict(name="replicate", kind="replicate", scene="cornell", cfg=CORNELL),
     ]
 
 
 def dp_phase(smi):
     """The [dp] phase: data parallelism on the one card.  Two ranks on
-    cuda:0 over gloo (NCCL refuses two ranks on one card; gloo's
-    collectives of CUDA tensors go through host copies,
-    ``parallel/render.py::host_staged``), then one rank over NCCL so its
+    cuda:0 over gloo (NCCL refuses two ranks on one card), every collective
+    on the CUDA tensors themselves, then one rank over NCCL so its
     all_reduce runs too.  Each is held against the same tasks in this
     process alone -> its JSON record."""
     torch.cuda.empty_cache()     # leave the card's memory to the ranks
@@ -1763,13 +1753,10 @@ def dp_phase(smi):
         (nccl,) = dp_check.run_ranks(tasks[:1], 1, "nccl", "cuda:0",
                                      os.path.join(tmp, "nccl"))
         nccl_s = time.perf_counter() - t0
-    staged = ranks[0]["device"].startswith("cuda")
     print(f"[dp] ran 2 ranks ({ranks[0]['backend']} on {ranks[0]['device']}"
-          f", {ranks[0]['device_name']}"
-          + (", their collectives of CUDA tensors staged through host copies"
-             if staged else "")
-          + f") in {gloo_s:.1f} s and 1 rank ({nccl['backend']}) in "
-          f"{nccl_s:.1f} s, on {smi}", flush=True)
+          f", {ranks[0]['device_name']}, collectives of CUDA tensors) in "
+          f"{gloo_s:.1f} s and 1 rank ({nccl['backend']}) in {nccl_s:.1f} s, "
+          f"on {smi}", flush=True)
     check([(r["backend"], r["world_size"]) for r in ranks + [nccl]]
           == [("gloo", 2), ("gloo", 2), ("nccl", 1)],
           "[dp] 2 gloo ranks and 1 NCCL rank on the card")
@@ -1808,6 +1795,13 @@ def dp_phase(smi):
     check(all(v["render_bunny"]["B1"] == 5 and v["dryrun_sweep"]["B1"] > 0
               for v in launches.values()),
           f"[dp] each rank's band went through B1: {launches}")
+
+    albedo = single["replicate"]["albedo"]   # rank 0 keeps its own
+    check(all(torch.equal(r["replicate"]["albedo"], albedo)
+              and r["replicate"]["before_differs"] == (r["rank"] != 0)
+              for r in ranks),
+          "[dp] replicate_scene's gloo broadcast of CUDA tensors hands both "
+          "ranks rank 0's scene")
 
     for name in ("dryrun_cornell", "dryrun_sweep"):
         r0, r1 = (r[name] for r in ranks)

@@ -3,7 +3,8 @@
 ``render`` goes through ``Renderer``: a render, a checkpoint and a resume
 write the PNG a Renderer stepped as many frames writes; ``--metrics`` logs
 one record per frame with the alive share; ``--debug-bvh`` overlays the
-BVH; ``invert`` trains and lowers the loss; ``info`` names the device.
+BVH; ``invert`` trains and lowers the loss; ``info`` names the device;
+``render`` started as one of several ranks exits before writing anything.
 Without a card and without ``--device`` every command exits non-zero with
 the device error.
 """
@@ -89,3 +90,12 @@ def test_no_card_without_device_exits_with_the_device_error(capsys):
             main(argv)
         assert e.value.code != 0
         assert "no CUDA device is available" in capsys.readouterr().err
+
+
+def test_render_refuses_a_multi_rank_launch(tmp_path, monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    out = tmp_path / "r.png"
+    with pytest.raises(SystemExit, match="render runs in one process"):
+        main(["render", *SMALL, "--scene", "cornell", "--frames", "1",
+              "--out", str(out)])
+    assert not out.exists()

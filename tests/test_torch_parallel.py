@@ -12,14 +12,25 @@ their results against the same tasks computed in this process alone:
   NEE+MIS (the two bands' sums reorder the single process's sums).  The
   camera position's grad is a sum of per-pixel terms that cancel (its value
   is about the size of each band's part), so the reordering moves it by
-  ~1e-4 of its value: it is held, bit for bit, to the sum of the two
-  bands' single-process grads instead;
+  ~1e-4 of its value.  It is held bit for bit to the sum of the two bands'
+  single-process grads; in float64 that sum equals the whole frame's grad
+  within 1e-5 of its max; and the ranks' grad is within 1e-2 of the
+  single process's own float32 error (its float32 grad against its
+  float64 one) of the single-process grad;
 - an indivisible height raises ValueError; a train step over the group
   lowers the loss and leaves both ranks holding equal parameters;
   ``run_inverse_rendering`` over the group gives every rank the same
   history, checkpoints once and resumes on every rank; ``replicate_scene``
   gives every rank rank 0's scene.
+
+The ranks run this file as a script: its ``__main__`` is ``dp_check``'s
+with this file's extra task kind, ``inverse``.
 """
+
+import dataclasses
+import functools
+import os
+
 
 import pytest
 import torch
@@ -27,6 +38,8 @@ import torch
 from wc_path_tracer_tpu_torch import RenderConfig
 from wc_path_tracer_tpu_torch.models import builtin
 from wc_path_tracer_tpu_torch.optim import params as reg
+from wc_path_tracer_tpu_torch.optim.inverse import (InverseRenderConfig,
+                                                    run_inverse_rendering)
 from wc_path_tracer_tpu_torch.parallel import dp_check
 from wc_path_tracer_tpu_torch.parallel import mesh as pmesh
 from wc_path_tracer_tpu_torch.parallel import render as prender
@@ -38,6 +51,27 @@ C16 = dict(width=16, height=16, samples=1, max_bounces=2, sky="black")
 GEOMETRY = list(prender.BENCH_TRAINABLE) + ["sphere_position", "vertices"]
 DRY_RUN = ["albedo", "emission_strength", "roughness", "sphere_position",
            "vertices", "camera_position"]
+
+
+def _inverse(task, cfg, scene, cam, target, group):
+    """``run_inverse_rendering`` over ``group`` for ``steps`` - 1 steps with
+    checkpoints, then resumed to ``steps``."""
+    ck = task["checkpoint_dir"]
+    inv = functools.partial(InverseRenderConfig,
+                            trainable=tuple(task["trainable"]),
+                            learning_rate=task["lr"], log_every=1)
+    steps = task["steps"]
+    renderer = task["renderer"]
+    _, _, first = run_inverse_rendering(
+        scene, cam, target, cfg, inv(steps=steps - 1), renderer=renderer,
+        group=group, checkpoint_dir=ck, checkpoint_every=2)
+    _, _, resumed = run_inverse_rendering(
+        scene, cam, target, cfg, inv(steps=steps), renderer=renderer,
+        group=group, checkpoint_dir=ck, resume=True)
+    return dict(history=first, resumed=resumed, files=sorted(os.listdir(ck)))
+
+
+EXTRA = {"inverse": _inverse}
 
 
 def _tasks(tmp):
@@ -66,8 +100,6 @@ def _tasks(tmp):
              trainable=["albedo", "emission_strength"], renderer="auto",
              lr=0.05, steps=4, checkpoint_dir=str(tmp / "ck")),
         dict(name="replicate", kind="replicate", scene="cornell", cfg=C16),
-        dict(name="band_error", kind="band_error", scene="cornell",
-             cfg=dict(C16, height=15)),
     ]
 
 
@@ -77,10 +109,10 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dp")
     tasks = _tasks(tmp)
     ranks = dp_check.run_ranks(tasks, 2, "gloo", "cpu", str(tmp / "out"),
-                               timeout=300)
+                               timeout=300, worker=__file__)
     single = {t["name"]: dp_check.run_task(
         dict(t, checkpoint_dir=str(tmp / "ck1")) if t["kind"] == "inverse"
-        else t, "cpu") for t in tasks if t["kind"] != "band_error"}
+        else t, "cpu", extra=EXTRA) for t in tasks}
     return ranks, single
 
 
@@ -117,30 +149,58 @@ def test_sharded_loss_grad_matches_single_process(runs, name):
             assert float(want["grads"][k].abs().max()) > 0.0, k
 
 
-def test_camera_grad_is_the_sum_of_the_band_grads(runs):
-    ranks, _ = runs
+def _float64(x):
+    """A scene or camera with every float tensor in float64."""
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: _float64(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    return x
+
+
+def _camera_grads(scene, cam, bands):
+    """The camera position's grad of the bench loss of each band
+    (y0, rows) of the 16 x 16 NEE+MIS frame, in the scene's dtype."""
     cfg = RenderConfig(**C16, use_nee=True)
-    scene, cam = builtin.cornell_box_scene(device="cpu")
-    target = torch.zeros(16, 16, 3)
-    parts = []
-    for y0 in (0, 8):
+    target = torch.zeros(16, 16, 3, dtype=cam.position.dtype)
+    out = []
+    for y0, rows in bands:
         p = cam.position.detach().clone().requires_grad_(True)
         s, c = reg.apply_params(scene, cam, {"camera_position": p})
-        loss = prender._loss_rows(s, camera_matrices(c, 1.0), cfg, 0, y0, 8,
-                                  target[y0:y0 + 8], "auto") / (16 * 16 * 3)
-        parts.append(torch.autograd.grad(loss, p)[0])
+        loss = prender._loss_rows(s, camera_matrices(c, 1.0), cfg, 0, y0,
+                                  rows, target[y0:y0 + rows], "auto")
+        out.append(torch.autograd.grad(loss / (16 * 16 * 3), p)[0])
+    return out
+
+
+def test_camera_grad_is_the_sum_of_the_band_grads(runs):
+    ranks, single = runs
+    scene, cam = builtin.cornell_box_scene(device="cpu")
+    parts = _camera_grads(scene, cam, [(0, 8), (8, 8)])
+    want = single["loss_grad_camera"]["grads"]["camera_position"]
+    # in float64 the band split leaves the grad as it is (~1e-13 of it)...
+    full64, *parts64 = _camera_grads(_float64(scene), _float64(cam),
+                                     [(0, 16), (0, 8), (8, 8)])
+    scale = float(full64.abs().max())
+    assert float((parts64[0] + parts64[1] - full64).abs().max()) \
+        <= 1e-5 * scale
+    # ...and in float32 it moves the grad by far less than float32 itself
+    # does (the single process's float32 grad against the float64 one)
+    f32_err = float((want.double() - full64).abs().max())
     for r in ranks:
         got = r["loss_grad_camera"]["grads"]["camera_position"]
         assert torch.equal(got, parts[0] + parts[1])
+        err = float((got - want).abs().max())
+        assert err <= 1e-2 * f32_err, (err, f32_err)
     assert float((parts[0] + parts[1]).abs().max()) > 0.0
 
 
-def test_indivisible_height_raises(runs):
-    ranks, _ = runs
-    for r in ranks:
-        assert "not divisible by the world size 2" in r["band_error"]["raised"]
-    with pytest.raises(ValueError, match="not divisible"):
+def test_indivisible_height_raises():
+    with pytest.raises(ValueError, match="not divisible by the world size 2"):
         prender._band(RenderConfig(**dict(C16, height=15)), 2)
+    with pytest.raises(ValueError, match="not divisible by the world size 3"):
+        prender._band(RenderConfig(**C16), 3)
 
 
 @pytest.mark.parametrize("name", ["train", "train_sweep"])
@@ -194,3 +254,7 @@ def test_a_group_of_none_is_this_process_alone():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1]["albedo"],
                                                    b[1]["albedo"])
     assert pmesh.replicate_scene(scene, None) is scene
+
+
+if __name__ == "__main__":
+    dp_check.main(extra=EXTRA)

@@ -12,7 +12,8 @@ Every command runs on the CUDA card unless ``--device`` names another
 rank of a process group (``torchrun`` sets WORLD_SIZE, RANK, LOCAL_RANK
 and the master address), ``invert`` trains over the group with the backend
 ``--backend`` names; ``--device cuda`` then means the rank's own card,
-``cuda:LOCAL_RANK``.
+``cuda:LOCAL_RANK``.  ``render`` runs in one process and refuses such a
+launch.
 """
 
 from __future__ import annotations
@@ -103,11 +104,11 @@ def _sky(args):
 
 
 def _kernel_launches() -> dict:
-    """Launches of each CUDA kernel wrapper so far in this process."""
-    from wc_path_tracer_tpu_torch.kernels import cluster, traversal
-    return {"cluster_sweep": cluster.cluster_sweep_kernel.launches,
-            "cluster_sweep_mxu": cluster.cluster_sweep_mxu_kernel.launches,
-            "bvh_walk": traversal.bvh_walk_kernel.launches}
+    """Launches of each CUDA kernel wrapper so far in this process, by
+    kernel name."""
+    from wc_path_tracer_tpu_torch.kernels import launches
+    return {launches.NAMES[tag]: n
+            for tag, n in launches.read_counts().items()}
 
 
 def _sync(device):
@@ -121,6 +122,10 @@ def cmd_render(args, device):
     from wc_path_tracer_tpu_torch.scene.camera import camera_matrices
     from wc_path_tracer_tpu_torch.utils.metrics import MetricsLogger, mrays
 
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        sys.exit("error: render runs in one process; it was started as one "
+                 "of several ranks (WORLD_SIZE > 1), whose outputs would "
+                 "overwrite each other")
     scene, cam = _build_scene(args, device)
     cfg = _make_cfg(args, _sky(args))
     r = Renderer(scene, cam, cfg, renderer=args.renderer, device=device)

@@ -1,0 +1,28 @@
+"""The launch counters of the port's CUDA kernels, in one map.
+
+Each kernel wrapper adds one to its ``launches`` attribute where it
+launches its kernel on CUDA tensors, and nowhere else (on CPU tensors its
+plain twin runs and nothing is counted).  ``KERNELS`` keys each wrapper by
+its tag in the kernel tables (B1-B3); ``NAMES`` gives each tag the kernel's
+name.
+"""
+
+from __future__ import annotations
+
+from wc_path_tracer_tpu_torch.kernels import cluster, traversal
+
+KERNELS = {"B1": cluster.cluster_sweep_kernel,
+           "B2": cluster.cluster_sweep_mxu_kernel,
+           "B3": traversal.bvh_walk_kernel}
+NAMES = {"B1": "cluster_sweep", "B2": "cluster_sweep_mxu", "B3": "bvh_walk"}
+
+
+def reset_counts():
+    """Set every kernel's launch count to 0."""
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    """{tag: launches so far} of every kernel."""
+    return {tag: k.launches for tag, k in KERNELS.items()}

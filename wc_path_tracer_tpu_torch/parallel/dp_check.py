@@ -13,12 +13,11 @@ runs each task of ``spec.json`` over the group and writes what it computed
 returns their results; ``run_task(task, device, None)`` computes the same
 task in this process alone, the reference the ranks are held against.
 
-A task is a dict: ``name``; ``kind`` ("render", "loss_grad", "train",
-"inverse", "replicate" or "band_error"); ``scene`` ("cornell",
+A task is a dict: ``name``; ``kind`` ("render", "loss_grad", "train" or
+"replicate", or a kind of the caller's ``extra``); ``scene`` ("cornell",
 "bunny_like2" or "bunny_gltf"); ``cfg`` (RenderConfig fields);
-``renderer``; ``frame``; and per kind ``trainable``, ``lr``, ``steps``,
-``checkpoint_dir``, ``timed`` (steps timed on the host clock after the
-first).  Targets are zero images (the bench loss).
+``renderer``; ``frame``; and per kind ``trainable``, ``lr``, ``timed`` (steps timed on the host
+clock after the first).  Targets are zero images (the bench loss).
 """
 
 from __future__ import annotations
@@ -36,19 +35,15 @@ import time
 import torch
 import torch.distributed as dist
 
-from wc_path_tracer_tpu_torch.kernels import cluster, traversal
+from wc_path_tracer_tpu_torch.kernels import launches
 from wc_path_tracer_tpu_torch.models import builtin, procedural
 from wc_path_tracer_tpu_torch.optim import params as reg
-from wc_path_tracer_tpu_torch.optim.inverse import (InverseRenderConfig,
-                                                    run_inverse_rendering)
 from wc_path_tracer_tpu_torch.parallel import mesh as pmesh
 from wc_path_tracer_tpu_torch.parallel import render as prender
 from wc_path_tracer_tpu_torch.scene.camera import camera_matrices
 from wc_path_tracer_tpu_torch.utils.config import RenderConfig
 
-KERNELS = {"B1": cluster.cluster_sweep_kernel,
-           "B2": cluster.cluster_sweep_mxu_kernel,
-           "B3": traversal.bvh_walk_kernel}
+MODULE = "wc_path_tracer_tpu_torch.parallel.dp_check"
 
 
 def _sync(device):
@@ -73,26 +68,19 @@ def _scene(name: str, device: str):
     return build(device=device)
 
 
-def run_task(task: dict, device, group=None) -> dict:
+def run_task(task: dict, device, group=None, extra=None) -> dict:
     """One task over ``group`` (None: this process alone) -> its results,
-    tensors on the host."""
+    tensors on the host.  ``extra`` maps further kinds to functions
+    (task, cfg, scene, camera, target, group) -> results."""
     device = torch.device(device)
     cfg = RenderConfig(**task["cfg"])
     scene, cam = _scene(task["scene"], str(device))
     renderer = task.get("renderer", "golden")
     frame = task.get("frame", 0)
     target = torch.zeros((cfg.height, cfg.width, 3), device=device)
-    for k in KERNELS.values():
-        k.launches = 0
+    launches.reset_counts()
     out = {}
     kind = task["kind"]
-    if kind == "band_error":
-        try:
-            prender.sharded_scene_loss_grad(cfg, ("albedo",), renderer, group)
-            out["raised"] = None
-        except ValueError as e:
-            out["raised"] = str(e)
-        return out
     if kind == "render":
         fn = prender.sharded_render_frame(cfg, renderer, group)
         out["image"] = fn(scene, camera_matrices(cam, cfg.width / cfg.height),
@@ -118,20 +106,6 @@ def run_task(task: dict, device, group=None) -> dict:
             cfg, task["trainable"], renderer, group)(s1, c1, frame, target)
         out.update(loss_before=loss0, loss_after=loss1, grads=state.grads,
                    params=reg.get_params(s1, c1, task["trainable"]))
-    elif kind == "inverse":
-        ck = task["checkpoint_dir"]
-        inv = functools.partial(InverseRenderConfig,
-                                trainable=tuple(task["trainable"]),
-                                learning_rate=task["lr"], log_every=1)
-        steps = task["steps"]
-        _, _, first = run_inverse_rendering(
-            scene, cam, target, cfg, inv(steps=steps - 1), renderer=renderer,
-            group=group, checkpoint_dir=ck, checkpoint_every=2)
-        _, _, resumed = run_inverse_rendering(
-            scene, cam, target, cfg, inv(steps=steps), renderer=renderer,
-            group=group, checkpoint_dir=ck, resume=True)
-        out.update(history=first, resumed=resumed,
-                   files=sorted(os.listdir(ck)))
     elif kind == "replicate":
         # each rank scales its albedo by (1 + rank); replicate_scene must
         # hand every rank rank 0's
@@ -141,10 +115,12 @@ def run_task(task: dict, device, group=None) -> dict:
         out["before_differs"] = not torch.equal(mine.materials.albedo,
                                                 mats.albedo)
         out["albedo"] = pmesh.replicate_scene(mine, group).materials.albedo
+    elif extra and kind in extra:
+        out.update(extra[kind](task, cfg, scene, cam, target, group))
     else:
         raise ValueError(f"unknown task kind {kind!r}")
     _sync(device)
-    out["launches"] = {n: k.launches for n, k in KERNELS.items()}
+    out["launches"] = launches.read_counts()
     return _host(out)
 
 
@@ -155,10 +131,12 @@ def free_port() -> int:
 
 
 def run_ranks(tasks: list, world_size: int, backend: str, device: str,
-              out_dir: str, timeout: float = 600.0) -> list:
+              out_dir: str, timeout: float = 600.0, worker=None) -> list:
     """Start ``world_size`` ranks (subprocesses of this interpreter, one
     gloo or NCCL group over localhost), run ``tasks`` on each, and return
-    each rank's results.  Raises with a rank's output if one fails."""
+    each rank's results.  ``worker`` is the script each rank runs, one
+    whose ``main`` calls this module's ``main`` (default: this module).
+    Raises with a rank's output if one fails."""
     os.makedirs(out_dir, exist_ok=True)
     spec = os.path.join(out_dir, "spec.json")
     with open(spec, "w") as f:
@@ -166,15 +144,17 @@ def run_ranks(tasks: list, world_size: int, backend: str, device: str,
     init = f"tcp://localhost:{free_port()}"
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
+    run = [worker] if worker else ["-m", MODULE]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     procs = []
     for r in range(world_size):
         log = open(os.path.join(out_dir, f"rank{r}.log"), "w")
         procs.append((subprocess.Popen(
-            [sys.executable, "-m", "wc_path_tracer_tpu_torch.parallel.dp_check",
-             "--backend", backend, "--init-method", init,
+            [sys.executable, *run, "--backend", backend, "--init-method", init,
              "--world-size", str(world_size), "--rank", str(r),
              "--device", device, "--spec", spec, "--out", out_dir],
-            cwd=root, stdout=log, stderr=subprocess.STDOUT), log))
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT), log))
     deadline = time.monotonic() + timeout
     failed = []
     try:
@@ -200,7 +180,9 @@ def run_ranks(tasks: list, world_size: int, backend: str, device: str,
             for r in range(world_size)]
 
 
-def main(argv=None):
+def main(argv=None, extra=None):
+    """One rank: run the spec's tasks over the group (``extra`` as in
+    ``run_task``) and save the results."""
     ap = argparse.ArgumentParser(prog="dp_check")
     ap.add_argument("--backend", required=True, choices=pmesh.BACKENDS)
     ap.add_argument("--init-method", required=True)
@@ -229,7 +211,7 @@ def main(argv=None):
                "device_name": torch.cuda.get_device_name(device)
                if device.type == "cuda" else "cpu"}
     for task in tasks:
-        results[task["name"]] = run_task(task, device, group)
+        results[task["name"]] = run_task(task, device, group, extra)
     dist.barrier(group=group)
     torch.save(results, os.path.join(args.out, f"rank{args.rank}.pt"))
     dist.destroy_process_group()

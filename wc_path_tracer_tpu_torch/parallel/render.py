@@ -39,19 +39,8 @@ def _band(cfg: RenderConfig, world: int) -> int:
     return cfg.height // world
 
 
-def host_staged(t: torch.Tensor, group) -> bool:
-    """Whether a collective of ``t`` over ``group`` goes through a host
-    copy: gloo reduces host memory, so CUDA tensors on a gloo group (several
-    ranks sharing one card) are copied to the host and back."""
-    return t.is_cuda and dist.get_backend(group) == "gloo"
-
-
 def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     """Sum of ``t`` over the ranks of ``group``, in place."""
-    if host_staged(t, group):
-        h = t.cpu()
-        dist.all_reduce(h, group=group)
-        return t.copy_(h)
     dist.all_reduce(t, group=group)
     return t
 
@@ -61,12 +50,11 @@ def gather_rows(rows: torch.Tensor, group=None) -> torch.Tensor:
     order, on every rank."""
     if group is None:
         return rows
-    n = pmesh.world_size(group)
-    staged = host_staged(rows, group)
-    src = rows.cpu() if staged else rows.contiguous()
-    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-    dist.all_gather_into_tensor(out, src, group=group)
-    return out.to(rows.device) if staged else out
+    rows = rows.contiguous()
+    out = rows.new_empty((pmesh.world_size(group) * rows.shape[0],)
+                         + tuple(rows.shape[1:]))
+    dist.all_gather_into_tensor(out, rows, group=group)
+    return out
 
 
 def _intersect_fn(renderer, scene, cfg):
