@@ -71,6 +71,16 @@ and ``info``.  Its [dp] phase runs ``parallel/dp_check.py`` as 2 ranks on
 the card over gloo and 1 rank over NCCL: the Cornell 1024^2 bench step's
 loss and grads, the sharded 512^2 bunny render through B1 on each band, and
 the multi-device dry run's train steps, each against this process alone.
+Its [scene] phase drives the native host scene library (built with g++
+from scene/csrc/scene_native.cpp beside the kernels; the script fails if
+the BVHs fell back to NumPy): the NumPy BVH builder against the native one
+on the glTF bunny and bumpy spheres of 81,920 and 327,680 triangles (trees
+equal on every array, seconds of each on the card's host); the 327,680-
+triangle mesh of ``bunny_like_scene(7)`` written as an OBJ and rendered at
+512^2 by ``render --obj`` in subprocesses through "auto" (B1, 5 launches
+per frame) and "pallas" (B3, one draw, 5 per frame); one in-process frame
+of each with its peak memory; and B1 and B3 against their twins, bit for
+bit, on that scene's primary query, timed against their bounds.
 The last two lines of standard output are a JSON line describing every
 ported kernel and {"ok": true, "device": {...}}.  Any failed check raises: the script then
 exits non-zero and prints no result.  It fails without a CUDA card and
@@ -99,10 +109,12 @@ from wc_path_tracer_tpu_torch.kernels import build, cluster, traversal
 from wc_path_tracer_tpu_torch.kernels.launches import (KERNELS, read_counts,
                                                        reset_counts)
 from wc_path_tracer_tpu_torch.models.builtin import (cornell_box_scene,
-                                                     full_bsdf_scene)
+                                                     full_bsdf_scene,
+                                                     mesh_scene)
 from wc_path_tracer_tpu_torch.models.gltf import gltf_scene, parse_gltf
 from wc_path_tracer_tpu_torch.models.procedural import (
-    BUNNY_GLB, bunny_gltf_scene, signed_zero_query, tie_heavy_query)
+    BUNNY_GLB, bumpy_sphere, bunny_gltf_scene, signed_zero_query,
+    tie_heavy_query)
 from wc_path_tracer_tpu_torch.optim import params as reg
 from wc_path_tracer_tpu_torch.optim.inverse import (InverseRenderConfig,
                                                     run_inverse_rendering)
@@ -111,11 +123,14 @@ from wc_path_tracer_tpu_torch.parallel import render as prender
 from wc_path_tracer_tpu_torch.render import dispatch, golden, sweep, wavefront
 from wc_path_tracer_tpu_torch.render import renderer as renderer_module
 from wc_path_tracer_tpu_torch.render.renderer import Renderer
+from wc_path_tracer_tpu_torch.scene import native
+from wc_path_tracer_tpu_torch.scene.bvh import build_bvh
 from wc_path_tracer_tpu_torch.scene.camera import (camera_matrices,
                                                    primary_ray_directions)
 from wc_path_tracer_tpu_torch.scene.types import (MATERIAL_LAMBERTIAN,
                                                   MATERIAL_METAL,
                                                   SceneBuilder)
+from wc_path_tracer_tpu_torch.utils.checkpoint import load_pytree
 
 H100_FP32_FLOPS = 67e12      # FP32 non-tensor peak, H100 SXM at 700 W
 H100_HBM_BYTES = 3.35e12     # HBM3 bytes/s, H100 SXM
@@ -153,6 +168,9 @@ EDGE_TRAINABLE = ("vertices", "camera_position")
 # closest hits of both traced paths on bounces 1-4, their 2 x 5 shadow queries
 EDGE_LIT_B1 = 1 + 2 * 4 + 2 * 5
 SERVE_FRAMES = 8             # progressive frames of the [serve] Renderer
+SCENE_SUBDIV = 7             # [scene]: bumpy_sphere(7), bunny_like_scene(7)
+SCENE_TRIS = 20 * 4 ** SCENE_SUBDIV     # 327,680 triangles
+SCENE_FRAMES = 2             # frames of each [scene] CLI render
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -222,6 +240,18 @@ def image_agreement(a, b, tol):
 
 def nbytes(*tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def walk_bytes(mesh, touched, *io):
+    """Bytes a B3 walk must move: its per-ray inputs and outputs ``io``,
+    each once, the draw records, and one read of each node and triangle
+    record it reaches (``touched``, the twin's masks: inner nodes entered,
+    triangle slots tested), not the padded scene tables, most of which a
+    walk never reads."""
+    t = traversal.walk_tables(mesh)
+    nodes, tris = (int(x.sum()) for x in touched)
+    return (nbytes(*io, t.draws) + nodes * t.nodes[0].nbytes
+            + tris * t.tris[0].nbytes)
 
 
 def bound(ops, nb):
@@ -449,18 +479,24 @@ def walk_same(query, mesh, twin, layouts):
     return out
 
 
-def walk_twin(query, mesh):
-    """The twin over every lane -> ((t, off, counts), device ms of the one
-    run, CUDA events)."""
-    o, d, t0, _ = query
+def walk_twin(query, mesh, masked=False):
+    """The twin over every lane (``masked``: the query's live lanes) ->
+    ((t, off, counts), device ms of the one run, CUDA events, the records
+    it reached as ``bvh_walk_plain``'s ``touched`` masks)."""
+    o, d, t0, alive = query
     counts = torch.zeros((o.shape[0], traversal.COUNT_COLS),
                          dtype=torch.int32, device="cuda")
+    touched = (torch.zeros(mesh.bvh_left.shape[0], dtype=torch.bool,
+                           device="cuda"),
+               torch.zeros(mesh.indices.shape[0] // 3, dtype=torch.bool,
+                           device="cuda"))
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    tp, op = traversal.bvh_walk_plain(o, d, t0, mesh, counts)
+    tp, op = traversal.bvh_walk_plain(o, d, t0, mesh, counts,
+                                      alive if masked else None, touched)
     end.record()
     torch.cuda.synchronize()
-    return (tp, op, counts), start.elapsed_time(end)
+    return (tp, op, counts), start.elapsed_time(end), touched
 
 
 def pallas_phase(smi, cfg, unsplit, ptxas):
@@ -503,7 +539,7 @@ def pallas_phase(smi, cfg, unsplit, ptxas):
     parity, per_query, layouts_same = [], [], True
     for q, query in enumerate(queries):
         o, d, t0, alive = query
-        twin, plain = walk_twin(query, m)
+        twin, plain, touched = walk_twin(query, m)
         tp, op, cp = twin
         ck = torch.zeros_like(cp)
         tk, ok = traversal.bvh_walk_kernel(o, d, t0, m, ck)
@@ -526,8 +562,7 @@ def pallas_phase(smi, cfg, unsplit, ptxas):
         pops, inner, tests = (int(x) for x in cp.long().sum(0))
         ops = (R * nd * OPS_PER_SLAB + pops * OPS_PER_POP
                + inner * OPS_PER_INNER + tests * OPS_PER_TEST)
-        nb = nbytes(o, d, t0, tk, ok, m.bvh_min, m.bvh_max, m.bvh_left,
-                    m.bvh_count, m.indices, m.vertices)
+        nb = walk_bytes(m, touched, o, d, t0, tk, ok)
         bound_ms, bound_by = bound(ops, nb)
         ms = event_ms(lambda: traversal.bvh_walk_kernel(o, d, t0, m), 20)
         ms_live = event_ms(lambda: traversal.bvh_walk_kernel(
@@ -582,7 +617,7 @@ def pallas_phase(smi, cfg, unsplit, ptxas):
         alive = (torch.rand(65536, generator=gen) < 0.7).cuda()
         cases.append((label, (o, d, t0, alive), mesh))
     for label, query, mesh in cases:
-        twin, _ = walk_twin(query, mesh)
+        twin = walk_twin(query, mesh)[0]
         same = walk_same(query, mesh, twin, layouts)
         extra[label] = dict(bitwise_every_layout_with_and_without_mask=same,
                             hits=int((twin[1] >= 0).sum()),
@@ -951,7 +986,7 @@ def walk_shadow_queries(smi, scene, mats, cfg):
     nd = int(m.draw_count)
     out = []
     for q, (o, d, t0, alive) in enumerate(calls[1::2]):
-        twin, _ = walk_twin((o, d, t0, alive), m)
+        twin, _, touched = walk_twin((o, d, t0, alive), m, masked=True)
         ck = torch.zeros_like(twin[2])
         tk, ok = traversal.bvh_walk_kernel(o, d, t0, m, ck, alive=alive)
         torch.cuda.synchronize()
@@ -963,8 +998,7 @@ def walk_shadow_queries(smi, scene, mats, cfg):
         pops, inner, tests = (int(x) for x in ck.long().sum(0))
         ops = (live * nd * OPS_PER_SLAB + pops * OPS_PER_POP
                + inner * OPS_PER_INNER + tests * OPS_PER_TEST)
-        nb = nbytes(o, d, t0, alive, tk, ok, m.bvh_min, m.bvh_max,
-                    m.bvh_left, m.bvh_count, m.indices, m.vertices)
+        nb = walk_bytes(m, touched, o, d, t0, alive, tk, ok)
         bound_ms, bound_by = bound(ops, nb)
         ms = event_ms(lambda: traversal.bvh_walk_kernel(o, d, t0, m,
                                                         alive=alive), 20)
@@ -1830,6 +1864,296 @@ def dp_phase(smi):
                 gloo_s=gloo_s, nccl_s=nccl_s, card=smi)
 
 
+BVH_ARRAYS = ("node_min", "node_max", "node_left", "node_count", "indices",
+              "tri_order")
+
+
+def scene_meshes():
+    """The [scene] phase's host-build meshes: (label, vertices, indices) of
+    the glTF bunny and the bumpy spheres of 81,920 and 327,680 triangles."""
+    bunny = parse_gltf(BUNNY_GLB).meshes[0]
+    out = [("glTF bunny", bunny.vertices, bunny.indices)]
+    for s in (6, SCENE_SUBDIV):
+        out.append((f"bumpy_sphere({s})",) + bumpy_sphere(s))
+    return out
+
+
+def host_builds(smi, meshes):
+    """(a) The port's NumPy ``build_bvh`` against ``build_bvh_native``,
+    both robust, on each mesh: trees equal on every array (dtype and
+    values), seconds on the card's host -> {label: record}."""
+    out = {}
+    for label, v, idx in meshes:
+        t0 = time.perf_counter()
+        nb = native.build_bvh_native(v, idx, robust=True)
+        ns = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pb = build_bvh(v, idx, robust=True)
+        ps = time.perf_counter() - t0
+        tris = len(idx) // 3
+        check(all(getattr(nb, k).dtype == getattr(pb, k).dtype
+                  and np.array_equal(getattr(nb, k), getattr(pb, k))
+                  for k in BVH_ARRAYS),
+              f"[scene] {label} ({tris} triangles): the native tree equals "
+              f"the NumPy builder's on every array ({', '.join(BVH_ARRAYS)})")
+        out[label] = dict(triangles=tris, numpy_s=ps, native_s=ns,
+                          nodes=nb.num_nodes, depth=nb.depth())
+        print(f"[scene] host BVH build, {label}, {tris} triangles: NumPy "
+              f"{ps:.3f} s, native {ns:.4f} s ({ps / ns:.0f}x), "
+              f"{nb.num_nodes} nodes, depth {out[label]['depth']} (the "
+              f"card's host CPU; card {smi})", flush=True)
+    return out
+
+
+def write_obj(path, v, idx):
+    """``v`` (float32, written exactly) and 1-based triangle faces."""
+    with open(path, "w") as f:
+        f.writelines(f"v {x!r} {y!r} {z!r}\n" for x, y, z in v.tolist())
+        f.writelines(f"f {a} {b} {c}\n"
+                     for a, b, c in (idx.reshape(-1, 3) + 1).tolist())
+
+
+def scene_cli(smi, obj, tmp):
+    """(c) ``render --obj`` of the large OBJ at 512^2, 4 bounces, through
+    "auto" (B1, 5 launches per frame) and "pallas" (B3, 5 per frame), each
+    in a subprocess -> {path: record}."""
+    p = functools.partial(os.path.join, tmp)
+    args = ["render", "--obj", obj, "--width", "512", "--height", "512",
+            "--bounces", "4", "--frames", str(SCENE_FRAMES)]
+    zero = {"cluster_sweep": 0, "cluster_sweep_mxu": 0, "bvh_walk": 0}
+    out = {}
+    for path, kernel in (("auto", "cluster_sweep"), ("pallas", "bvh_walk")):
+        _, err, s = run_cli([*args, "--renderer", path, "--metrics",
+                             p(f"{path}.jsonl"), "--checkpoint",
+                             p(f"ck_{path}"), "--out", p(f"{path}.png")])
+        recs = frame_records(p(f"{path}.jsonl"), SCENE_FRAMES,
+                             dict(zero, **{kernel: 5}),
+                             f"{SCENE_TRIS}-triangle OBJ '{path}' render")
+        line = next((ln for ln in err.splitlines()
+                     if ln.startswith("scene: ")), "")
+        check(f"{SCENE_TRIS} triangles, 1 draw(s)" in line
+              and "bvh builder: native (" in line,
+              f"[scene] the '{path}' process built one {SCENE_TRIS}-"
+              f"triangle draw with the native builder: {line}")
+        check(read_png(p(f"{path}.png")).shape == (512, 512, 3),
+              f"[scene] the '{path}' PNG is 512 x 512 x 3")
+        image = load_pytree(p(f"ck_{path}"), {
+            "image": torch.zeros((512, 512, 3))})["image"]
+        check_image(image, f"[scene] the '{path}' process's accumulated "
+                    f"{SCENE_FRAMES}-frame")
+        ms = [r["seconds"] * 1e3 for r in recs]
+        out[path] = dict(frame_ms=ms, process_s=s, scene_line=line,
+                         launches={k: sum(r["kernel_launches"][k]
+                                          for r in recs) for k in zero},
+                         alive_fraction=recs[0]["alive_fraction"])
+        print(f"[scene] CLI render --obj, {SCENE_TRIS} triangles, 512^2, "
+              f"'{path}': ms per frame {[round(x, 2) for x in ms]} (host "
+              f"clock, synchronized), process {s:.1f} s, launches "
+              f"{out[path]['launches']}, {line}, on {smi}", flush=True)
+    return out
+
+
+def scene_frame(smi, scene, mats, cfg, path, tag):
+    """One in-process frame through dispatch ``path``: its launches (the
+    counts set to 0 just before and read just after), peak memory and
+    image -> record."""
+    frame_fn = dispatch.get_render_frame(path, scene, cfg)
+    check(frame_fn.backend == ("sweep" if path == "auto" else path),
+          f"[scene] dispatch '{path}' picks {frame_fn.backend}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad():
+        image, s = sync_time(lambda: golden.render_step(
+            scene, mats, cfg, 0, None, frame_fn=frame_fn))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(counts == dict({"B1": 0, "B2": 0, "B3": 0}, **{tag: 5}),
+          f"[scene] one in-process '{path}' frame launched {counts}")
+    check_image(image, f"[scene] in-process '{path}'")
+    print(f"[scene] in-process '{path}' frame 0 (the first on this scene): "
+          f"{s * 1e3:.2f} ms, peak {peak:.2f} GiB allocated, on {smi}",
+          flush=True)
+    return dict(first_frame_ms=s * 1e3, peak_gib=peak, launches=counts)
+
+
+def scene_sweep(smi, scene, mats, cfg):
+    """(d) B1 on the large scene's primary query: bit for bit with its twin
+    (``sweep_both``), ms per launch against its bound, the whole query
+    (cull, sort, kernel), the cull's chunking and the per-frame table
+    rebuild -> record."""
+    queries = []
+
+    def capture(nact, clist, bt0, rays, prev, tris):
+        if not queries:
+            queries.append([x.clone() for x in (nact, clist, bt0, rays, prev,
+                                                tris)])
+        return cluster.cluster_sweep_kernel(nact, clist, bt0, rays, prev, tris)
+
+    with torch.no_grad():
+        golden.render_frame(scene, mats, cfg, 0, intersect_fn=sweep
+                            .make_intersect_fn(scene, cfg, block_fn=capture))
+    args = queries[0]
+    RB, B = args[3].shape[:2]
+    tables = cluster.build_cluster_tables(scene.mesh)
+    C = tables[0].shape[0] // cluster.CLUSTER_ROWS
+    live = int(torch.all(tables[1] <= tables[2], dim=1).sum())
+    G = cluster.cull_chunk_blocks(RB, C, B)
+    o, d, t0 = primary_rays(args)
+    k, p, vk, vp, nact = sweep_both((o, d, t0) + tables, cluster.RAY_BLOCK)
+    rec = sweep_parity(f"{SCENE_TRIS}-triangle primary", k, p, vk, vp, nact)
+    check(rec["bitwise"] and rec["visits_equal"], f"[scene] B1 on the "
+          f"{SCENE_TRIS}-triangle primary query: payload and visits equal "
+          "the plain twin's bit for bit")
+    visits = torch.zeros(RB, dtype=torch.int32, device="cuda")
+    cluster.cluster_sweep_kernel(*args, visits)
+    ms = event_ms(lambda: cluster.cluster_sweep_kernel(*args), 20)
+    plain = event_ms(lambda: cluster.cluster_sweep_plain(*args), 1)
+    query_ms = event_ms(lambda: cluster.cluster_sweep(o, d, t0, *tables), 5)
+    ops = int(visits.sum()) * B * cluster.CLUSTER_TRIS * OPS_PER_TEST
+    bound_ms, bound_by = bound(ops, nbytes(*args) + nbytes(args[4]))
+    sweep.make_intersect_fn(scene, cfg)
+    _, s = sync_time(lambda: [sweep.make_intersect_fn(scene, cfg)
+                              for _ in range(3)])
+    out = dict(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+               max_abs_err=rec["max_abs_err"], parity=rec,
+               query_ms=query_ms, tables_ms=s / 3 * 1e3, clusters=C,
+               live_clusters=live, visits=int(visits.sum()),
+               nact_per_block=spread(args[0]), visits_per_block=spread(visits),
+               cull_elements=RB * B * C, cull_chunks=RB // G,
+               cull_chunk_rays=G * B)
+    print(f"[scene] B1 primary query, {C} clusters ({live} live): "
+          f"{ms:.4f} ms per launch (plain {plain:.1f} ms), bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.1f}x; "
+          f"{out['visits']} block-cluster visits (nact per block mean "
+          f"{out['nact_per_block']['mean']:.1f}, max "
+          f"{out['nact_per_block']['max']}); whole query (cull, sort, "
+          f"kernel) {query_ms:.3f} ms; cull of {RB * B} rays x {C} clusters "
+          f"in {RB // G} chunks of {G * B} rays; the sweep's tables "
+          f"(rebuilt per frame) {out['tables_ms']:.2f} ms, on {smi}",
+          flush=True)
+    return out
+
+
+def scene_walk(smi, scene, mats, cfg):
+    """(d) B3 on the large scene's primary query (one draw): bit for bit
+    with its twin under every layout, on every lane and the live lanes
+    (``walk_twin``, ``walk_same``), ms per launch against its bound, the
+    walk tables -> record."""
+    m = scene.mesh
+    queries = []
+
+    def capture(o, d, t_init, mesh, alive=None):
+        if not queries:
+            queries.append([x.clone() for x in (o, d, t_init, alive)])
+        return traversal.bvh_walk_kernel(o, d, t_init, mesh, alive=alive)
+
+    with torch.no_grad():
+        golden.render_frame(scene, mats, cfg, 0, intersect_fn=wavefront
+                            .make_intersect_fn_pallas(scene, capture))
+    tables = traversal.walk_tables(m)
+    check(int(m.draw_count) == 1 and tables.depth <= traversal.STACK_DEPTH
+          and tables.top_records[8] <= traversal.STAGE_RECORDS,
+          f"[scene] one draw, tree depth {tables.depth} <= "
+          f"{traversal.STACK_DEPTH} stack slots, top 8 levels "
+          f"{tables.top_records[8]} records <= {traversal.STAGE_RECORDS}")
+    query = queries[0]
+    o, d, t0, alive = query
+    R = o.shape[0]
+    twin, plain, touched = walk_twin(query, m)
+    same = walk_same(query, m, twin, walk_layouts())
+    tp, op, cp = twin
+    check(all(same.values()), f"[scene] B3 on the {SCENE_TRIS}-triangle "
+          "primary query: t, off and counters equal the twin's bit for bit "
+          "under every layout, on every lane and the live lanes")
+    tk, ok = traversal.bvh_walk_kernel(o, d, t0, m)
+    ms = event_ms(lambda: traversal.bvh_walk_kernel(o, d, t0, m), 20)
+    ms_live = event_ms(lambda: traversal.bvh_walk_kernel(
+        o, d, t0, m, alive=alive), 20)
+    pops, inner, tests = (int(x) for x in cp.long().sum(0))
+    ops = (R * OPS_PER_SLAB + pops * OPS_PER_POP + inner * OPS_PER_INNER
+           + tests * OPS_PER_TEST)
+    nb = walk_bytes(m, touched, o, d, t0, tk, ok)
+    bound_ms, bound_by = bound(ops, nb)
+    out = dict(ms=ms, ms_live=ms_live, plain_ms=plain, bound_ms=bound_ms,
+               bound_by=bound_by, bytes=nb,
+               max_abs_err=float((tk - tp).abs().max()),
+               bitwise_every_layout_with_and_without_mask=same,
+               hits=int((op >= 0).sum()), live=int(alive.sum()),
+               nodes_popped=pops, inner_entered=inner, tris_tested=tests,
+               node_records_read=int(touched[0].sum()),
+               tri_records_read=int(touched[1].sum()),
+               node_records=tables.nodes.shape[0],
+               tri_records=tables.tris.shape[0],
+               tree_depth=tables.depth, top_records=tables.top_records,
+               tables_build_s=tables.build_s)
+    print(f"[scene] B3 primary query, one draw of {SCENE_TRIS} triangles, "
+          f"depth {tables.depth}: {ms:.4f} ms all lanes, {ms_live:.4f} ms "
+          f"live lanes, plain {plain:.1f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}, {nb / 1e6:.2f} MB), {ms / bound_ms:.1f}x; "
+          f"{pops / R:.2f} nodes popped per ray; {inner} inner nodes "
+          f"entered and {tests} triangles tested in all, reading "
+          f"{out['node_records_read']} of {out['node_records']} node and "
+          f"{out['tri_records_read']} of {out['tri_records']} triangle "
+          f"records; walk tables built in "
+          f"{tables.build_s * 1e3:.1f} ms, on {smi}", flush=True)
+    return out
+
+
+def scene_phase(smi):
+    """The [scene] phase: the native host scene pipeline and the large
+    mesh end to end.  (a) host BVH builds, NumPy against native, at 20,480,
+    81,920 and 327,680 triangles; (b) bunny_like_scene's 327,680-triangle
+    mesh written as an OBJ; (c) ``render --obj`` of it in subprocesses on
+    "auto" (B1) and "pallas" (B3); (d) B1 and B3 against their twins on its
+    primary query, with times and peak memory -> its JSON record."""
+    check(native.available(), "[scene] the native scene library "
+          f"is built from this checkout and loaded: {native.status()}")
+    meshes = scene_meshes()
+    builds = host_builds(smi, meshes)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        v, idx = meshes[-1][1].copy(), meshes[-1][2]
+        v[:, 1] += 1.0                  # as bunny_like_scene lifts it
+        obj = os.path.join(tmp, "bumpy_sphere7.obj")
+        t0 = time.perf_counter()
+        write_obj(obj, v, idx)
+        print(f"[scene] wrote the {SCENE_TRIS}-triangle OBJ "
+              f"({os.path.getsize(obj) / 2**20:.1f} MiB) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        cli = scene_cli(smi, obj, tmp)
+        t0 = time.perf_counter()
+        scene, cam = mesh_scene(obj, device="cuda")     # the CLI's scene
+        scene_s = time.perf_counter() - t0
+    mats = camera_matrices(cam, 1.0)
+    cfg = RenderConfig(**BUNNY)
+    frames = {path: scene_frame(smi, scene, mats, cfg, path, tag)
+              for path, tag in (("auto", "B1"), ("pallas", "B3"))}
+    b1 = scene_sweep(smi, scene, mats, cfg)
+    b3 = scene_walk(smi, scene, mats, cfg)
+    del scene
+    torch.cuda.empty_cache()
+    return dict(host_builds=builds, cli=cli, scene_build_s=scene_s,
+                frames=frames, B1=b1, B3=b3, card=smi)
+
+
+def scene_entry(scene, key, cli_key):
+    """A kernel's [scene] keys for the kernels line: its launches in the
+    two CLI renders and, for B1 and B3, its times on the primary query."""
+    out = dict(scene_launches={path: rec["launches"][cli_key]
+                               for path, rec in scene["cli"].items()})
+    if key in scene:
+        r = scene[key]
+        out.update(scene_ms=r["ms"], scene_plain_ms=r["plain_ms"],
+                   scene_bound_ms=r["bound_ms"],
+                   scene_bound_by=r["bound_by"],
+                   scene_max_abs_err=r["max_abs_err"],
+                   scene_note=f"one launch on the primary query of the "
+                              f"{SCENE_TRIS}-triangle OBJ at 512^2")
+    return out
+
+
 def slice_launches(serving, cli, dp, key, cli_key):
     """A kernel's launches in the [serve], [cli] and [dp] runs."""
     return dict(
@@ -1875,9 +2199,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"device 0: {kind}; devices: {count}", flush=True)
 
-    # -- 1. build every kernel from this checkout (one nvcc per source) ----
+    # -- 1. build every kernel and the host scene library from this checkout
+    # (one nvcc or g++ per source, all started together) ------------------
     t0 = time.perf_counter()
-    logs = build.build_all()
+    logs = build.build_all(sources={native.LIBRARY: native.SOURCE})
     build_s = time.perf_counter() - t0
     print(f"[build] {len(logs)} source(s) compiled in {build_s:.1f} s",
           flush=True)
@@ -1887,6 +2212,8 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     for name in build.SIGNATURES:
         build.load(name)
+    check(native.available(), "every BVH of this run is built by "
+          f"the native host library: {native.status()}")
 
     # -- 2. the bunny scene; capture one frame's five kernel queries -------
     scene, cam = bunny_gltf_scene(device="cuda")
@@ -2095,6 +2422,14 @@ def main() -> int:
                                 (b3, "B3", "bvh_walk")):
         entry.update(slice_launches(serving, cli, dp, key, cli_key))
 
+    # -- 13. the native host scene pipeline and the 327,680-triangle OBJ
+    # through the CLI on B1 and B3 -----------------------------------------
+    scene_rec = scene_phase(smi)
+    for entry, key, cli_key in ((b2, "B2", "cluster_sweep_mxu"),
+                                (b3, "B3", "bvh_walk")):
+        entry.update(scene_entry(scene_rec, key, cli_key))
+    b3["scene"] = scene_rec["B3"]
+
     print(json.dumps({"kernels": [{
         "name": "cluster_sweep",
         "route": "cuda",
@@ -2132,6 +2467,8 @@ def main() -> int:
         "serve": serving,
         "cli": cli,
         "dp": dp,
+        **scene_entry(scene_rec, "B1", "cluster_sweep"),
+        "scene": {k: v for k, v in scene_rec.items() if k != "B3"},
     }, b2, b3]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -91,6 +91,16 @@ def test_grouped_cull_matches_direct(case, monkeypatch):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
+@pytest.mark.parametrize("RB, C, want", [
+    (512, 171, 512),     # the 512^2 bunny: 44.8 M elements, one piece
+    (512, 2731, 32),     # 327,680 triangles: 16 chunks of 16,384 rays
+    (3, 50000, 1),       # two ray blocks are above the limit
+])
+def test_cull_chunk_blocks(RB, C, want):
+    G = cluster.cull_chunk_blocks(RB, C, 512)
+    assert G == want and RB % G == 0
+
+
 def _assert_payload_matches(got, want):
     """Slot ids exact; t and the copied coordinates within rtol 1e-6."""
     np.testing.assert_array_equal(got[:, 11], want[:, 11])

@@ -407,6 +407,49 @@ def test_record_walk_matches_plain_walk(name):
         np.testing.assert_allclose(tr.numpy()[hit], t_j[hit], rtol=1e-6)
 
 
+@pytest.mark.parametrize("name", ["soup200", "split bunny", "two draws"])
+def test_plain_walk_marks_the_records_it_reads(name):
+    """The twin's ``touched`` masks: inner nodes entered and triangle slots
+    tested, by any lane.  One ray enters each node and tests each slot at
+    most once, so its masks count exactly its counters; a batch's masks
+    are the union of its rays' and fit the walk tables' records; with an
+    alive mask, only the live lanes mark."""
+    mesh, o, d, t_init = _bank(name)
+    tables = traversal.walk_tables(mesh)
+
+    def walk(idx=None, alive=None):
+        sel = (lambda x: x) if idx is None else (lambda x: x[idx])
+        marks = (torch.zeros(mesh.bvh_left.shape[0], dtype=torch.bool),
+                 torch.zeros(mesh.indices.shape[0] // 3, dtype=torch.bool))
+        cnt = torch.zeros((sel(o).shape[0], traversal.COUNT_COLS),
+                          dtype=torch.int32)
+        traversal.bvh_walk_plain(sel(o), sel(d), sel(t_init), mesh, cnt,
+                                 alive, marks)
+        return marks, cnt
+
+    rows = list(range(0, o.shape[0], o.shape[0] // 16))
+    union = None
+    for r in rows:
+        marks, cnt = walk([r])
+        assert int(marks[0].sum()) == int(cnt[0, 1])
+        assert int(marks[1].sum()) == int(cnt[0, 2])
+        assert bool((mesh.bvh_count[marks[0]] == 0).all())
+        union = marks if union is None else [u | m for u, m in
+                                             zip(union, marks)]
+    marks = walk(rows)[0]
+    assert all(torch.equal(a, b) for a, b in zip(marks, union))
+    (nodes, tris), cnt = walk()
+    assert 0 < int(tris.sum()) <= min(int(cnt[:, 2].sum()),
+                                      tables.tris.shape[0])
+    assert int(nodes.sum()) <= min(int(cnt[:, 1].sum()),
+                                   tables.nodes.shape[0])
+    alive = torch.from_numpy(np.random.default_rng(5).random(o.shape[0])
+                             < 0.5)
+    live = walk(alive.nonzero().squeeze(1))[0]
+    masked = walk(alive=alive)[0]
+    assert all(torch.equal(a, b) for a, b in zip(masked, live))
+
+
 def test_walks_take_an_alive_mask():
     """With a mask, the twin, the record walk and the wrapper walk only the
     live lanes: equal to the unmasked walk there, (t_init, -1) and zero

@@ -116,6 +116,17 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _report_scene(scene, seconds):
+    """One stderr line: the scene's triangles and draws, how long it took
+    to build, and which BVH builder built its meshes."""
+    from wc_path_tracer_tpu_torch.scene import native
+    draws = int(scene.mesh.draw_count)
+    tris = int(scene.mesh.draw_index_count[:draws].sum()) // 3
+    how = native.status() if draws else "none (no mesh)"
+    print(f"scene: {tris} triangles, {draws} draw(s), built in "
+          f"{seconds:.2f} s; bvh builder: {how}", file=sys.stderr)
+
+
 def cmd_render(args, device):
     from wc_path_tracer_tpu_torch.render import dispatch, golden
     from wc_path_tracer_tpu_torch.render.renderer import Renderer
@@ -126,7 +137,9 @@ def cmd_render(args, device):
         sys.exit("error: render runs in one process; it was started as one "
                  "of several ranks (WORLD_SIZE > 1), whose outputs would "
                  "overwrite each other")
+    t_scene = time.perf_counter()
     scene, cam = _build_scene(args, device)
+    _report_scene(scene, time.perf_counter() - t_scene)
     cfg = _make_cfg(args, _sky(args))
     r = Renderer(scene, cam, cfg, renderer=args.renderer, device=device)
     if args.resume:
@@ -256,6 +269,7 @@ def cmd_invert(args, device):
 
 def cmd_info(args, device):
     from wc_path_tracer_tpu_torch.parallel import mesh as pmesh
+    from wc_path_tracer_tpu_torch.scene import native
     group = _process_group(args)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
@@ -263,6 +277,7 @@ def cmd_info(args, device):
     print(f"cuda devices: {torch.cuda.device_count()}")
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}")
     print(f"rank: {pmesh.rank(group)}/{pmesh.world_size(group)}")
+    print(f"bvh builder: {native.status()}")
     if group is not None:
         dist.destroy_process_group()
 

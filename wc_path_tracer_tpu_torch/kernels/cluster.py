@@ -197,6 +197,18 @@ def sweep_reference(origin, direction, t_init, tris, cmin, cmax):
         torch.zeros((R, 4), dtype=origin.dtype, device=origin.device)], dim=1)
 
 
+def cull_chunk_blocks(RB: int, C: int, ray_block: int) -> int:
+    """Ray blocks per chunk of the cull: all ``RB`` when rays x clusters
+    fit CULL_MATERIALIZE_ELEMS, else the largest divisor of ``RB`` whose
+    chunk fits (at least 1)."""
+    if RB * ray_block * C <= CULL_MATERIALIZE_ELEMS:
+        return RB
+    G = max(1, CULL_MATERIALIZE_ELEMS // (ray_block * C))
+    while RB % G:
+        G -= 1
+    return G
+
+
 def _cull(origin, direction, t_best, cmin, cmax, RB: int, ray_block: int):
     """Ray-vs-cluster AABB cull -> (bt0 (RB, C) block entry distances, KINF
     where no ray of the block enters; t_lim (Rp,) farthest exit per ray,
@@ -221,11 +233,9 @@ def _cull(origin, direction, t_best, cmin, cmax, RB: int, ray_block: int):
         t_lim = torch.amax(torch.where(enter, t1, -KINF), dim=1)
         return bt0, t_lim
 
-    if Rp * C <= CULL_MATERIALIZE_ELEMS:
+    G = cull_chunk_blocks(RB, C, ray_block)
+    if G == RB:
         return sweep(origin, inv_d, t_best)
-    G = max(1, CULL_MATERIALIZE_ELEMS // (ray_block * C))
-    while RB % G:
-        G -= 1
     n = G * ray_block
     parts = [sweep(origin[i:i + n], inv_d[i:i + n], t_best[i:i + n])
              for i in range(0, Rp, n)]

@@ -310,11 +310,14 @@ def _draws(mesh):
 
 
 def _leaf_tests(origin, direction, mesh, enter, count, left, index_off,
-                vert_off, t_best, best, tested):
-    """Test each entered leaf's triangles in order; strict ``<`` update."""
+                vert_off, t_best, best, tested, seen=None):
+    """Test each entered leaf's triangles in order; strict ``<`` update.
+    ``seen`` (triangle slots,) bool, if given, is set at each slot tested."""
     for k in range(mesh.max_leaf_tris):
         valid = enter & (3 * k < count)
         i0 = torch.where(valid, index_off + left + 3 * k, 0)
+        if seen is not None:
+            seen[i0[valid] // 3] = True
         ia, ib, ic = (vert_off + mesh.indices[i0 + j].long() for j in range(3))
         t, _, _, hit = ix.ray_triangle(origin, direction, mesh.vertices[ia],
                                        mesh.vertices[ib], mesh.vertices[ic])
@@ -326,34 +329,39 @@ def _leaf_tests(origin, direction, mesh, enter, count, left, index_off,
     return t_best, best
 
 
-def _masked(walk, origin, direction, t_init, mesh, counts, alive):
-    """``walk`` over the lanes of ``alive`` only; the others get
-    ``(t_init, -1)`` and zero counters."""
+def _masked(walk, origin, direction, t_init, mesh, counts, alive, **kw):
+    """``walk`` (given ``kw``) over the lanes of ``alive`` only; the others
+    get ``(t_init, -1)`` and zero counters."""
     idx = alive.nonzero().squeeze(1)
     t = t_init.detach().clone()
     off = torch.full_like(t, -1, dtype=torch.int32)
     sub = None if counts is None else torch.zeros(
         (idx.shape[0], COUNT_COLS), dtype=torch.int32, device=t.device)
     t[idx], off[idx] = walk(origin[idx], direction[idx], t_init[idx], mesh,
-                            sub)
+                            sub, **kw)
     if counts is not None:
         counts.zero_()
         counts[idx] = sub
     return t, off
 
 
-def bvh_walk_plain(origin, direction, t_init, mesh, counts=None, alive=None):
+def bvh_walk_plain(origin, direction, t_init, mesh, counts=None, alive=None,
+                   touched=None):
     """Per-lane stack walk (the module docstring's order) in plain PyTorch:
     the kernel's twin.  origin/direction (R, 3) f32, t_init (R,) f32 ->
     (t (R,) f32, off (R,) int32).  ``counts`` (R, 3) int32, if given,
     receives each ray's nodes popped, inner nodes entered and triangles
-    tested; ``alive`` (R,) bool, if given, walks only its lanes.  Each step
+    tested; ``alive`` (R,) bool, if given, walks only its lanes.
+    ``touched``, if given, is a pair of bool tensors on the rays' device,
+    (node slots,) and (index slots // 3,): it is set at every inner node
+    entered and every triangle slot tested by any lane, the node and
+    triangle records the kernel reads (``walk_tables``).  Each step
     pops one node on every lane whose stack is not empty; lanes are
     independent, so this equals the kernel's walk of each ray.  Refuses a
     bank whose trees could overflow the stack (``check_stack_depth``)."""
     if alive is not None:
         return _masked(bvh_walk_plain, origin, direction, t_init, mesh,
-                       counts, alive)
+                       counts, alive, touched=touched)
     check_stack_depth(mesh)
     origin, direction = origin.detach(), direction.detach()
     R = origin.shape[0]
@@ -382,9 +390,12 @@ def bvh_walk_plain(origin, direction, t_init, mesh, counts=None, alive=None):
             cnt[:, 0] += act
             t_best, best = _leaf_tests(
                 origin, direction, mesh, enter & leaf, count, left,
-                index_off, vert_off, t_best, best, cnt[:, 2])
+                index_off, vert_off, t_best, best, cnt[:, 2],
+                None if touched is None else touched[1])
             push = enter & ~leaf
             cnt[:, 1] += push
+            if touched is not None:
+                touched[0][node[push]] = True
             lchild = torch.where(push, node_off + left, node)
             rchild = torch.where(push, lchild + 1, node)
             lt0, lt1 = ix.ray_box(origin, inv, mesh.bvh_min[lchild],

@@ -9,8 +9,11 @@ Semantics match the reference's parser (src/ModelLoader.jai:60-141):
 - out-of-range indices leave the attribute zero (matching the reference's
   bounds-checked copies, :117-119)
 
-The JAX package's ``load_obj`` prefers a native C++ parser that is
-bit-identical to ``parse_obj``; the port has only the Python parser.
+``load_obj`` parses with the native C++ parser of scene/native.py, whose
+results equal ``parse_obj``'s (tests/test_torch_native.py), and falls back
+to ``parse_obj`` where the library cannot be built, as the JAX package's
+does; the scene builders of models/builtin.py call ``parse_obj``, as the
+JAX package's do.
 """
 
 from __future__ import annotations
@@ -29,8 +32,10 @@ class ObjModel:
 
 
 def load_obj(path: str) -> ObjModel:
-    """Parse an OBJ file."""
-    return parse_obj(path)
+    """Parse an OBJ file with the native parser (``parse_obj``'s results;
+    ``parse_obj`` itself where the library is unavailable)."""
+    from wc_path_tracer_tpu_torch.scene.native import parse_obj_native
+    return parse_obj_native(path)
 
 
 def parse_obj(path_or_text: str, from_text: bool = False) -> ObjModel:

@@ -14,10 +14,13 @@ Semantics transcribed from the reference's builder
   node stores only its left-child id and the right child is ``left + 1``,
   exactly the layout the traversal kernel expects (pathTracer.comp:180-181).
 
-This runs on host in NumPy at scene-build time (the reference runs it in
-native Jai host code at LoadModel time).  It is a copy of the JAX package's
-NumPy builder; that package's C++ builder (native/) gives the same trees
-(tests/test_native.py), so scenes built by either package match bit for bit.
+This is a copy of the JAX package's NumPy builder, and the plain version of
+the native C++ builder that ``SceneBuilder.add_mesh`` uses
+(scene/native.py; the reference builds in native Jai host code at
+LoadModel time).  Both give the same trees bit for bit, as the JAX
+package's builders do (tests/test_torch_native.py), so scenes built by
+either package match bit for bit; this builder runs where the native
+library cannot be built.
 """
 
 from __future__ import annotations

@@ -17,7 +17,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from wc_path_tracer_tpu_torch.scene.bvh import build_bvh, split_mesh
+from wc_path_tracer_tpu_torch.scene import native
+from wc_path_tracer_tpu_torch.scene.bvh import split_mesh
 from wc_path_tracer_tpu_torch.utils.device import resolve_device
 
 MATERIAL_METAL = 0        # pathTracer.comp:32
@@ -196,13 +197,19 @@ class SceneBuilder:
         return len(self.spheres) - 1
 
     def add_mesh(self, vertices, indices, normals=None, uvs=None,
-                 tri_material=0, robust_bvh=True, max_blas_tris=None) -> int:
-        """Add a triangle mesh; ``max_blas_tris`` splits it spatially into
-        draws of at most that many triangles.  Returns the first draw id."""
+                 tri_material=0, bvh=None, robust_bvh=True,
+                 max_blas_tris=None) -> int:
+        """Add a triangle mesh.  ``bvh`` is a scene.bvh.BVH of it (built if
+        None, by the native builder of scene/native.py, whose trees equal
+        the NumPy builder's; ``bvh_builders`` records which built it).
+        ``max_blas_tris`` splits a mesh without a given ``bvh`` spatially
+        into draws of at most that many triangles.  Returns the first draw
+        id."""
         vertices = np.asarray(vertices, np.float32).reshape(-1, 3)
         indices = np.asarray(indices, np.int32).reshape(-1)
         ntris = len(indices) // 3
-        if max_blas_tris is not None and ntris > max_blas_tris:
+        if max_blas_tris is not None and ntris > max_blas_tris \
+                and bvh is None:
             tri_material = np.broadcast_to(
                 np.asarray(tri_material, np.int32), (ntris,))
             first = len(self.meshes)
@@ -211,7 +218,12 @@ class SceneBuilder:
                 self.add_mesh(sub_v, sub_i, tri_material=tri_material[tri_ids],
                               robust_bvh=robust_bvh)
             return first
-        bvh = build_bvh(vertices, indices, robust=robust_bvh)
+        if bvh is None:
+            bvh = native.build_bvh_native(vertices, indices,
+                                          robust=robust_bvh)
+            how = "native" if native.available() else "numpy"
+        else:
+            how = "given"
         tri_material = np.broadcast_to(
             np.asarray(tri_material, np.int32), (ntris,)).copy()
         self.meshes.append(dict(
@@ -220,8 +232,15 @@ class SceneBuilder:
             else np.asarray(normals, np.float32).reshape(-1, 3),
             uvs=np.zeros((len(vertices), 2), np.float32) if uvs is None
             else np.asarray(uvs, np.float32).reshape(-1, 2),
-            tri_material=tri_material, bvh=bvh))
+            tri_material=tri_material, bvh=bvh, bvh_builder=how))
         return len(self.meshes) - 1
+
+    @property
+    def bvh_builders(self) -> list[str]:
+        """Per draw, what built its BVH: "native" (scene/native.py's
+        library), "numpy" (its fallback, scene/bvh.py) or "given" (the
+        caller's ``bvh``)."""
+        return [m["bvh_builder"] for m in self.meshes]
 
     def build(self, device=None) -> Scene:
         dev = resolve_device(device)
