@@ -81,6 +81,18 @@ triangle mesh of ``bunny_like_scene(7)`` written as an OBJ and rendered at
 per frame) and "pallas" (B3, one draw, 5 per frame); one in-process frame
 of each with its peak memory; and B1 and B3 against their twins, bit for
 bit, on that scene's primary query, timed against their bounds.
+Its [bench] phase runs the port's bench (``python -m
+wc_path_tracer_tpu_torch.bench``) in subprocesses: the default command
+(Cornell 1024^2 fwd+bwd with bvh_row, bsdf_row and scaling_efficiency_8),
+--forward-only, --nee, the 512^2 bunny through "pallas", the 327,680-
+triangle bunny through "auto" and "pallas", and the single triangle; each
+JSON line must carry the root bench.py's keys and metric strings (read from
+its source), finite values > 0 and the launches of its path (Cornell none,
+"auto" on the bunny B1 5 per step, "pallas" B3 5 per step); in process, the
+bench's 512^2 bunny and config must be this script's and its step the fold
+of scene_loss_grad's loss and grads, bit for bit, and B3 must equal its
+twin bit for bit on the primary query of the bench's 327,680-triangle
+"pallas" scene (64 draws of 5,120), timed against its bound.
 The last two lines of standard output are a JSON line describing every
 ported kernel and {"ok": true, "device": {...}}.  Any failed check raises: the script then
 exits non-zero and prints no result.  It fails without a CUDA card and
@@ -89,6 +101,7 @@ outside the repository (the port's package must be importable).
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import functools
 import json
@@ -98,12 +111,13 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
 import torch
 
-from wc_path_tracer_tpu_torch import RenderConfig
+from wc_path_tracer_tpu_torch import RenderConfig, bench
 from wc_path_tracer_tpu_torch.io.image import read_png
 from wc_path_tracer_tpu_torch.kernels import build, cluster, traversal
 from wc_path_tracer_tpu_torch.kernels.launches import (KERNELS, read_counts,
@@ -129,7 +143,7 @@ from wc_path_tracer_tpu_torch.scene.camera import (camera_matrices,
                                                    primary_ray_directions)
 from wc_path_tracer_tpu_torch.scene.types import (MATERIAL_LAMBERTIAN,
                                                   MATERIAL_METAL,
-                                                  SceneBuilder)
+                                                  SceneBuilder, leaf_names)
 from wc_path_tracer_tpu_torch.utils.checkpoint import load_pytree
 
 H100_FP32_FLOPS = 67e12      # FP32 non-tensor peak, H100 SXM at 700 W
@@ -505,7 +519,8 @@ def pallas_phase(smi, cfg, unsplit, ptxas):
     five queries, the unsplit bunny ``unsplit``, seeded tie-heavy and
     signed-zero banks), times per layout, serving, frames.  Returns the
     kernel's JSON entry and the split scene."""
-    scene, cam = bunny_gltf_scene(max_blas_tris=8192, device="cuda")
+    scene, cam = bunny_gltf_scene(
+        max_blas_tris=dispatch.PALLAS_MAX_TRIS, device="cuda")
     mats = camera_matrices(cam, 1.0)
     m = scene.mesh
     nd = int(m.draw_count)
@@ -1214,7 +1229,8 @@ def train_phase(smi, scene, cam, split_scene, cscene, ccam):
     inverse-rendering run -> its JSON record."""
     mats = camera_matrices(cam, 1.0)
     cmats = camera_matrices(ccam, 1.0)
-    lit, lit_split = lit_bunny_scene(), lit_bunny_scene(max_blas_tris=8192)
+    lit, lit_split = lit_bunny_scene(), lit_bunny_scene(
+        max_blas_tris=dispatch.PALLAS_MAX_TRIS)
     bunny, cornell = RenderConfig(**BUNNY), RenderConfig(**CORNELL)
     cells = {}
     for label, sc, m, cfg, renderer, per_step in (
@@ -2036,12 +2052,13 @@ def scene_sweep(smi, scene, mats, cfg):
     return out
 
 
-def scene_walk(smi, scene, mats, cfg):
-    """(d) B3 on the large scene's primary query (one draw): bit for bit
-    with its twin under every layout, on every lane and the live lanes
-    (``walk_twin``, ``walk_same``), ms per launch against its bound, the
-    walk tables -> record."""
+def walk_query(smi, tag, what, scene, mats, cfg):
+    """B3 on ``scene``'s primary query, however many draws it has: bit for
+    bit with its twin under every layout, on every lane and the live lanes
+    (``walk_twin``, ``walk_same``), ms per launch against its bound ->
+    (record, the walk tables)."""
     m = scene.mesh
+    nd = int(m.draw_count)
     queries = []
 
     def capture(o, d, t_init, mesh, alive=None):
@@ -2053,27 +2070,22 @@ def scene_walk(smi, scene, mats, cfg):
         golden.render_frame(scene, mats, cfg, 0, intersect_fn=wavefront
                             .make_intersect_fn_pallas(scene, capture))
     tables = traversal.walk_tables(m)
-    check(int(m.draw_count) == 1 and tables.depth <= traversal.STACK_DEPTH
-          and tables.top_records[8] <= traversal.STAGE_RECORDS,
-          f"[scene] one draw, tree depth {tables.depth} <= "
-          f"{traversal.STACK_DEPTH} stack slots, top 8 levels "
-          f"{tables.top_records[8]} records <= {traversal.STAGE_RECORDS}")
     query = queries[0]
     o, d, t0, alive = query
     R = o.shape[0]
     twin, plain, touched = walk_twin(query, m)
     same = walk_same(query, m, twin, walk_layouts())
     tp, op, cp = twin
-    check(all(same.values()), f"[scene] B3 on the {SCENE_TRIS}-triangle "
-          "primary query: t, off and counters equal the twin's bit for bit "
-          "under every layout, on every lane and the live lanes")
+    check(all(same.values()), f"{tag} B3 on {what}, primary query: t, off "
+          "and counters equal the twin's bit for bit under every layout, on "
+          "every lane and the live lanes")
     tk, ok = traversal.bvh_walk_kernel(o, d, t0, m)
     ms = event_ms(lambda: traversal.bvh_walk_kernel(o, d, t0, m), 20)
     ms_live = event_ms(lambda: traversal.bvh_walk_kernel(
         o, d, t0, m, alive=alive), 20)
     pops, inner, tests = (int(x) for x in cp.long().sum(0))
-    ops = (R * OPS_PER_SLAB + pops * OPS_PER_POP + inner * OPS_PER_INNER
-           + tests * OPS_PER_TEST)
+    ops = (R * nd * OPS_PER_SLAB + pops * OPS_PER_POP
+           + inner * OPS_PER_INNER + tests * OPS_PER_TEST)
     nb = walk_bytes(m, touched, o, d, t0, tk, ok)
     bound_ms, bound_by = bound(ops, nb)
     out = dict(ms=ms, ms_live=ms_live, plain_ms=plain, bound_ms=bound_ms,
@@ -2086,10 +2098,12 @@ def scene_walk(smi, scene, mats, cfg):
                tri_records_read=int(touched[1].sum()),
                node_records=tables.nodes.shape[0],
                tri_records=tables.tris.shape[0],
-               tree_depth=tables.depth, top_records=tables.top_records,
-               tables_build_s=tables.build_s)
-    print(f"[scene] B3 primary query, one draw of {SCENE_TRIS} triangles, "
-          f"depth {tables.depth}: {ms:.4f} ms all lanes, {ms_live:.4f} ms "
+               draws=nd, tree_depth=tables.depth,
+               top_records=tables.top_records, tables_build_s=tables.build_s)
+    print(f"{tag} B3 primary query, {what}, {nd} draws, depth "
+          f"{tables.depth}, top 8 levels {tables.top_records[8]} records "
+          f"(staged: at most {traversal.STAGE_RECORDS}): {ms:.4f} ms all "
+          f"lanes, {ms_live:.4f} ms "
           f"live lanes, plain {plain:.1f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}, {nb / 1e6:.2f} MB), {ms / bound_ms:.1f}x; "
           f"{pops / R:.2f} nodes popped per ray; {inner} inner nodes "
@@ -2098,6 +2112,19 @@ def scene_walk(smi, scene, mats, cfg):
           f"{out['tri_records_read']} of {out['tri_records']} triangle "
           f"records; walk tables built in "
           f"{tables.build_s * 1e3:.1f} ms, on {smi}", flush=True)
+    return out, tables
+
+
+def scene_walk(smi, scene, mats, cfg):
+    """(d) B3 on the large scene's primary query, one draw whose top 8
+    levels fit the kernel's staging -> ``walk_query``'s record."""
+    out, tables = walk_query(smi, "[scene]", f"the {SCENE_TRIS}-triangle "
+                             "OBJ", scene, mats, cfg)
+    check(out["draws"] == 1 and tables.depth <= traversal.STACK_DEPTH
+          and tables.top_records[8] <= traversal.STAGE_RECORDS,
+          f"[scene] one draw, tree depth {tables.depth} <= "
+          f"{traversal.STACK_DEPTH} stack slots, top 8 levels "
+          f"{tables.top_records[8]} records <= {traversal.STAGE_RECORDS}")
     return out
 
 
@@ -2178,6 +2205,202 @@ def shadow_entry(train, key):
                     "frame's 5 shadow queries",
         train_launches={label: c["launches"][key]
                         for label, c in train["cells"].items()})
+
+
+# [bench]: (label, arguments) of each run of the port's bench; what each must
+# print follows from its arguments (bench_expected)
+BENCH_RUNS = [
+    ("default", []),
+    ("forward-only", ["--forward-only"]),
+    ("nee", ["--nee"]),
+    ("bunny pallas", ["--scene", "bunny", "--size", "512", "--renderer",
+                      "pallas"]),
+    (f"bunny {SCENE_TRIS} auto", ["--scene", "bunny", "--size", "512",
+                                  "--subdiv", str(SCENE_SUBDIV), "--iters",
+                                  "2"]),
+    (f"bunny {SCENE_TRIS} pallas", ["--scene", "bunny", "--size", "512",
+                                    "--subdiv", str(SCENE_SUBDIV), "--iters",
+                                    "2", "--renderer", "pallas"]),
+    ("triangle", ["--scene", "triangle"]),
+]
+BENCH_WALK_RUN = f"bunny {SCENE_TRIS} pallas"     # B3's twin check in [bench]
+BENCH_ROWS = ("bvh_row", "bsdf_row")
+BENCH_LAUNCH = "bench: launches "
+
+
+def bench_py_metric(fn, **names):
+    """The ``"metric"`` expression of the dict function ``fn`` of the root
+    bench.py builds (``main``, ``_bvh_row``, ``_bsdf_row``), read from its
+    source and evaluated with ``names``."""
+    tree = ast.parse(open(os.path.join(ROOT, "bench.py")).read())
+    node = next(f for f in tree.body
+                if isinstance(f, ast.FunctionDef) and f.name == fn)
+    expr = next(v for d in ast.walk(node) if isinstance(d, ast.Dict)
+                for k, v in zip(d.keys, d.values)
+                if isinstance(k, ast.Constant) and k.value == "metric")
+    return eval(compile(ast.Expression(expr), "bench.py", "eval"), names)
+
+
+def bench_expected(args):
+    """(headline metric, the rows the record must carry, the kernel the
+    headline must launch) of one bench run, as bench.py would label it."""
+    a = bench.parse_args(args)[1]
+    mode = "fwd" if a.forward_only else "fwd+bwd"
+    size = a.size or (128 if a.small else 1024)
+    metric = bench_py_metric("main", mode=mode, size=size, args=a,
+                             cfg=types.SimpleNamespace(max_bounces=a.bounces))
+    rows = ()
+    if a.scene == "cornell" and not a.small and a.renderer == "auto":
+        rows = BENCH_ROWS + (() if a.forward_only
+                             else ("scaling_efficiency_8",))
+    kernel = None
+    if a.scene == "bunny":
+        kernel = "bvh_walk" if a.renderer == "pallas" else "cluster_sweep"
+    return metric, rows, kernel
+
+
+def bench_run(smi, label, args):
+    """One run of ``python -m wc_path_tracer_tpu_torch.bench ARGS`` in a
+    subprocess -> record: its JSON line held to bench.py's metric strings,
+    every value finite and > 0, each row's kernel launches per step."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "wc_path_tracer_tpu_torch.bench", *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"[bench] {label} exits 0 ({s:.1f} s)" + (
+        "" if proc.returncode == 0 else f":\n{proc.stderr[-3000:]}"))
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    metric, rows, kernel = bench_expected(args)
+    keys = {"metric", "value", "unit", "vs_baseline", "alive_fraction",
+            "alive_mrays", *rows}
+    check(set(rec) == keys and rec["metric"] == metric,
+          f"[bench] {label}: the record has bench.py's keys {sorted(keys)} "
+          f"and its metric string {metric!r}")
+    values = [rec["value"], rec["vs_baseline"], rec["alive_fraction"],
+              rec["alive_mrays"]]
+    for row in rows:
+        values += ([rec[row]] if row.startswith("scaling") else
+                   [v for k, v in rec[row].items() if k != "metric" and
+                    k != "unit"])
+    check(all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+              for v in values), f"[bench] {label}: every value is finite "
+          f"and > 0: {values}")
+    if rows:
+        check(rec["bvh_row"]["metric"] == bench_py_metric("_bvh_row")
+              and rec["bsdf_row"]["metric"] == bench_py_metric(
+                  "_bsdf_row", COMPACT_CONFIG_D=bench.COMPACT_CONFIG_D),
+              f"[bench] {label}: the row metrics equal bench.py's: "
+              f"{rec['bvh_row']['metric']!r}, {rec['bsdf_row']['metric']!r}")
+    launches = {r["row"]: r for r in (
+        json.loads(line[len(BENCH_LAUNCH):]) for line in
+        proc.stderr.splitlines() if line.startswith(BENCH_LAUNCH))}
+    want = {"headline": kernel, "bvh_row": "cluster_sweep", "bsdf_row": None,
+            "scaling_efficiency_8": None}
+    want = {row: want[row] for row in ("headline",) + rows}
+    zero = {"cluster_sweep": 0, "cluster_sweep_mxu": 0, "bvh_walk": 0}
+    check(set(launches) == set(want) and all(
+        launches[row]["per_step"] == dict(zero, **(
+            {k: 5} if k else {})) for row, k in want.items()),
+        f"[bench] {label}: kernel launches per step "
+        + ", ".join(f"{row} {launches[row]['per_step']}" for row in launches))
+    print(f"[bench] {label} ({' '.join(args) or 'no flags'}): {s:.1f} s; "
+          f"{json.dumps(rec)} (on {smi})", flush=True)
+    for line in proc.stderr.splitlines():
+        if line.startswith("bench: ") and not line.startswith(BENCH_LAUNCH):
+            print(f"  {line}", flush=True)
+    return dict(args=args, record=rec, process_s=s, launches={
+        row: r["counts"] for row, r in launches.items()})
+
+
+def same_scene(a, b):
+    """Whether two scenes hold equal tensors in every leaf."""
+    return a.mesh.max_leaf_tris == b.mesh.max_leaf_tris and all(
+        torch.equal(getattr(getattr(a, g), f), getattr(getattr(b, g), f))
+        for g, f in (name.split(".") for name in leaf_names()))
+
+
+def bench_step_parity(smi, scene, mats):
+    """What the [bench] bunny runs are, checked in process: the bench's
+    scene ladder and config for ``--scene bunny --size 512`` give this
+    script's bunny (every tensor and camera matrix equal) and the [train]
+    bunny cell's config, and its fwd+bwd step on frame 1 is the fold of
+    ``scene_loss_grad(cfg, BENCH_TRAINABLE, "auto")``'s loss and grads, bit
+    for bit under deterministic algorithms.  The step's agreement with the
+    JAX package is tests/test_torch_bench.py's."""
+    args = bench.parse_args(["--scene", "bunny", "--size", "512"])[1]
+    bscene, bcam, sky = bench.build_scene("bunny", "auto", args.subdiv,
+                                          "cuda")
+    cfg = bench.make_config(args, 512, sky)
+    bmats = camera_matrices(bcam, 1.0)
+    check(cfg == RenderConfig(**BUNNY) and same_scene(bscene, scene) and all(
+        torch.equal(getattr(bmats, f.name), getattr(mats, f.name))
+        for f in dataclasses.fields(mats)),
+        "[bench] the bench's bunny is this script's, every tensor and camera "
+        f"matrix equal, and its config the [train] bunny cell's: {cfg}")
+    target = torch.zeros((512, 512, 3), device="cuda")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            scalar = bench.make_step(cfg, "auto")(bscene, bmats, 1, target)
+            loss, grads = prender.scene_loss_grad(
+                RenderConfig(**BUNNY), prender.BENCH_TRAINABLE, "auto")(
+                scene, mats, 1, target)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(torch.equal(scalar, bench.fold(loss, grads)),
+          f"[bench] the bench's fwd+bwd step on the 512^2 bunny, frame 1, "
+          f"{float(scalar):.9g}, is bit for bit the fold of scene_loss_grad's "
+          f"loss {float(loss):.9g} and grads of {', '.join(grads)}")
+    return dict(loss=float(loss), scalar=float(scalar))
+
+
+def bench_walk(smi):
+    """B3 at the shapes the [bench] 327,680-triangle "pallas" run gives it:
+    the bench's own scene (``bunny_like_scene(SCENE_SUBDIV)`` in draws of
+    ``PALLAS_MAX_TRIS``) and config, its primary query through
+    ``walk_query`` -> record."""
+    args = bench.parse_args(dict(BENCH_RUNS)[BENCH_WALK_RUN])[1]
+    scene, cam, sky = bench.build_scene(args.scene, args.renderer,
+                                        args.subdiv, "cuda")
+    m = scene.mesh
+    draws = int(m.draw_count)
+    per_draw = m.draw_index_count[:draws] // 3
+    check(draws > 1 and int(per_draw.max()) <= dispatch.PALLAS_MAX_TRIS
+          and int(per_draw.sum()) == SCENE_TRIS,
+          f"[bench] the {SCENE_TRIS}-triangle bunny under 'pallas' is "
+          f"{draws} draws of {int(per_draw.min())}-{int(per_draw.max())} "
+          f"triangles, at most {dispatch.PALLAS_MAX_TRIS}")
+    out, _ = walk_query(
+        smi, "[bench]", f"the {SCENE_TRIS}-triangle bunny in {draws} draws",
+        scene, camera_matrices(cam, 1.0), bench.make_config(args, args.size,
+                                                            sky))
+    return out
+
+
+def bench_phase(smi, scene, mats):
+    """The [bench] phase: the port's bench entry point in subprocesses, on
+    the card by default: its default command (Cornell 1024^2 fwd+bwd with
+    bvh_row, bsdf_row and scaling_efficiency_8), --forward-only, --nee, the
+    bunny through "pallas" (B3), the 327,680-triangle bunny through "auto"
+    (B1) and "pallas" (B3), the single triangle; then, in process, its bunny
+    and step against this script's (``bench_step_parity``) and B3 against
+    its twin on the 327,680-triangle "pallas" scene (``bench_walk``) -> its
+    JSON record."""
+    t0 = time.perf_counter()
+    runs = {label: bench_run(smi, label, args) for label, args in BENCH_RUNS}
+    parity = bench_step_parity(smi, scene, mats)
+    walk = bench_walk(smi)
+    return dict(runs=runs, step_parity=parity, B3=walk,
+                phase_s=time.perf_counter() - t0, card=smi)
+
+
+def bench_launches(bench_rec, cli_key):
+    """A kernel's launches in each [bench] run, summed over its rows."""
+    return {label: sum(c[cli_key] for c in run["launches"].values())
+            for label, run in bench_rec["runs"].items()}
 
 
 def main() -> int:
@@ -2430,6 +2653,19 @@ def main() -> int:
         entry.update(scene_entry(scene_rec, key, cli_key))
     b3["scene"] = scene_rec["B3"]
 
+    # -- 14. the port's bench entry point (python -m
+    # wc_path_tracer_tpu_torch.bench) in subprocesses ----------------------
+    bench_rec = bench_phase(smi, scene, mats)
+    for entry, cli_key in ((b2, "cluster_sweep_mxu"), (b3, "bvh_walk")):
+        entry["bench_launches"] = bench_launches(bench_rec, cli_key)
+    w = b3["bench"] = bench_rec["B3"]
+    b3.update(bench_ms=w["ms"], bench_plain_ms=w["plain_ms"],
+              bench_bound_ms=w["bound_ms"], bench_bound_by=w["bound_by"],
+              bench_max_abs_err=w["max_abs_err"],
+              bench_note=f"one launch on the primary query of the bench's "
+                         f"{SCENE_TRIS}-triangle 'pallas' bunny at 512^2, "
+                         f"{w['draws']} draws")
+
     print(json.dumps({"kernels": [{
         "name": "cluster_sweep",
         "route": "cuda",
@@ -2469,6 +2705,8 @@ def main() -> int:
         "dp": dp,
         **scene_entry(scene_rec, "B1", "cluster_sweep"),
         "scene": {k: v for k, v in scene_rec.items() if k != "B3"},
+        "bench_launches": bench_launches(bench_rec, "cluster_sweep"),
+        "bench": {k: v for k, v in bench_rec.items() if k != "B3"},
     }, b2, b3]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -699,3 +699,30 @@ def test_cli_render_on_card(tmp_path):
         text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "on cuda" in proc.stderr and os.path.exists(out)
+
+
+@pytest.mark.gpu
+def test_bench_on_card():
+    """``python -m wc_path_tracer_tpu_torch.bench`` on the card by default:
+    the bunny at 64^2 through "auto" exits 0 and prints bench.py's JSON
+    line, with the cluster sweep launched 5 times per step."""
+    _need_card()
+    import json
+    import math
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "wc_path_tracer_tpu_torch.bench", "--scene",
+         "bunny", "--size", "64", "--iters", "2"], cwd=root,
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert rec["metric"] == "Mrays/s/chip fwd+bwd (64^2 bunny, 4 bounces)"
+    assert math.isfinite(rec["value"]) and rec["value"] > 0
+    launches = [json.loads(line[len("bench: launches "):])
+                for line in proc.stderr.splitlines()
+                if line.startswith("bench: launches ")]
+    assert launches[0]["per_step"] == {"cluster_sweep": 5,
+                                       "cluster_sweep_mxu": 0, "bvh_walk": 0}

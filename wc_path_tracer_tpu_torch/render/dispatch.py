@@ -21,6 +21,10 @@ from __future__ import annotations
 from wc_path_tracer_tpu_torch.render import golden, sweep, wavefront
 
 BRUTE_FORCE_MAX_TRIS = 256
+# The JAX package's packet kernel's draw limit (its tables had to fit the
+# TPU's scalar memory).  The port's BVH walk has none; the limit is kept so
+# that the bench's "pallas" cells split the bunny into the same draws.
+PALLAS_MAX_TRIS = 8192
 
 
 # renderer name -> (scene, cfg) -> closest-hit backend for golden's transport
