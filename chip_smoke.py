@@ -27,10 +27,15 @@ The BVH walk must equal its twin bit for bit (t, offset and the per-ray
 counters) on its frame's five queries, on the unsplit bunny and on seeded
 tie-heavy and signed-zero banks, under every build it is timed in, walking
 every lane and only the transport's live lanes; its frame walking live
-lanes only must equal the frame walking every lane.  Per query it prints
+lanes only must equal the frame walking every lane.  The rows entry points
+``sweep.render_rows``, ``sweep.trace_rays`` and
+``wavefront.render_rows_pallas`` must launch their kernel 5 times per
+512 x 512 frame and equal the golden transport through the same backend
+bit for bit.  Per query it prints
 the time walking every lane and the live lanes only, the bound, the nodes
 and triangles each ray visits, and the time of each build.
-It also renders the 1024 x 1024 Cornell box through the brute-force path
+It also renders the 1024 x 1024 Cornell box through the brute-force path,
+``Scene.empty()`` (which must be the gradient sky alone) at that size,
 and the plain "wavefront" BVH walks at 64 x 64, checks the images, and
 prints times beside the card's name and power limit.
 
@@ -69,8 +74,9 @@ B1 with bloom, metrics and a checkpoint, resumed (its PNG equal to a
 Renderer's), through "pallas" (B3), ``invert`` on the 128^2 Cornell box
 and ``info``.  Its [dp] phase runs ``parallel/dp_check.py`` as 2 ranks on
 the card over gloo and 1 rank over NCCL: the Cornell 1024^2 bench step's
-loss and grads, the sharded 512^2 bunny render through B1 on each band, and
-the multi-device dry run's train steps, each against this process alone.
+loss and grads, the sharded 512^2 bunny render through B1 on each band,
+``render_image_sharded``'s brute-force Cornell 1024^2 frame, and the
+multi-device dry run's train steps, each against this process alone.
 Its [scene] phase drives the native host scene library (built with g++
 from scene/csrc/scene_native.cpp beside the kernels; the script fails if
 the BVHs fell back to NumPy): the NumPy BVH builder against the native one
@@ -90,7 +96,9 @@ JSON line must carry the root bench.py's keys and metric strings (read from
 its source), finite values > 0 and the launches of its path (Cornell none,
 "auto" on the bunny B1 5 per step, "pallas" B3 5 per step); in process, the
 bench's 512^2 bunny and config must be this script's and its step the fold
-of scene_loss_grad's loss and grads, bit for bit, and B3 must equal its
+of scene_loss_grad's loss and grads, bit for bit, the scaling row's
+batched step must equal the same 8 band frames rendered one after another
+(images bit for bit) with far fewer launches, and B3 must equal its
 twin bit for bit on the primary query of the bench's 327,680-triangle
 "pallas" scene (64 draws of 5,120), timed against its bound.
 The last two lines of standard output are a JSON line describing every
@@ -129,6 +137,7 @@ from wc_path_tracer_tpu_torch.models.gltf import gltf_scene, parse_gltf
 from wc_path_tracer_tpu_torch.models.procedural import (
     BUNNY_GLB, bumpy_sphere, bunny_gltf_scene, signed_zero_query,
     tie_heavy_query)
+from wc_path_tracer_tpu_torch.ops import rng
 from wc_path_tracer_tpu_torch.optim import params as reg
 from wc_path_tracer_tpu_torch.optim.inverse import (InverseRenderConfig,
                                                     run_inverse_rendering)
@@ -142,7 +151,7 @@ from wc_path_tracer_tpu_torch.scene.bvh import build_bvh
 from wc_path_tracer_tpu_torch.scene.camera import (camera_matrices,
                                                    primary_ray_directions)
 from wc_path_tracer_tpu_torch.scene.types import (MATERIAL_LAMBERTIAN,
-                                                  MATERIAL_METAL,
+                                                  MATERIAL_METAL, Scene,
                                                   SceneBuilder, leaf_names)
 from wc_path_tracer_tpu_torch.utils.checkpoint import load_pytree
 
@@ -300,6 +309,69 @@ def check_image(image, what):
     check(bool(torch.isfinite(image).all()) and image.shape == (512, 512, 3),
           f"{what} image is finite, 512 x 512 x 3")
     check(0.05 < mean < 3.0, f"{what} image mean {mean:.4f} is plausible")
+
+
+def sweep_wrappers(cfg, scene, mats, frame):
+    """``sweep.render_rows`` and ``sweep.trace_rays`` on the 512^2 bunny,
+    frame 5: each launches B1 once per bounce and equals the golden
+    transport through ``sweep.make_intersect_fn`` bit for bit (``frame``
+    is that frame, rendered so)."""
+    H, W = cfg.height, cfg.width
+    cluster.cluster_sweep_kernel.launches = 0
+    with torch.no_grad():
+        rows = sweep.render_rows(scene, mats, cfg, 5, 0, H)
+    n = cluster.cluster_sweep_kernel.launches
+    check(n == cfg.max_bounces + 1 and torch.equal(rows, frame),
+          f"sweep.render_rows of the {W}^2 frame launched B1 {n} times and "
+          "equals golden.render_rows through make_intersect_fn bit for bit")
+    d = primary_ray_directions(mats, W, H).reshape(-1, 3)
+    o = mats.position.expand_as(d)
+    seed = rng.pixel_seed(torch.arange(H * W, device=d.device), 5)
+    cluster.cluster_sweep_kernel.launches = 0
+    with torch.no_grad():
+        light, out = sweep.trace_rays(scene, o, d, seed, cfg)
+        n = cluster.cluster_sweep_kernel.launches
+        want, want_seed = golden.trace_rays(
+            scene, o, d, seed, cfg, sweep.make_intersect_fn(scene, cfg))
+    check(n == cfg.max_bounces + 1 and torch.equal(light, want)
+          and torch.equal(out, want_seed),
+          f"sweep.trace_rays of the {W}^2 primary rays launched B1 {n} times "
+          "and equals golden.trace_rays through make_intersect_fn bit for "
+          "bit, radiance and seeds")
+
+
+def pallas_rows(cfg, scene, mats):
+    """``wavefront.render_rows_pallas`` of frame 5 launches B3 once per
+    bounce and equals ``golden.render_rows`` through
+    ``make_intersect_fn_pallas`` bit for bit."""
+    traversal.bvh_walk_kernel.launches = 0
+    with torch.no_grad():
+        rows = wavefront.render_rows_pallas(scene, mats, cfg, 5, 0,
+                                            cfg.height)
+        n = traversal.bvh_walk_kernel.launches
+        want = golden.render_rows(
+            scene, mats, cfg, 5, 0, cfg.height,
+            intersect_fn=wavefront.make_intersect_fn_pallas(scene))
+    check(n == cfg.max_bounces + 1 and torch.equal(rows, want),
+          f"wavefront.render_rows_pallas of the {cfg.width}^2 frame launched "
+          f"B3 {n} times and equals golden.render_rows through "
+          "make_intersect_fn_pallas bit for bit")
+
+
+def empty_sky(mats, cfg):
+    """``Scene.empty()`` (device None: the card) renders the gradient sky
+    alone at the config's size (tests/test_render_golden.py:30-41)."""
+    sky = cfg.replace(sky="gradient")
+    with torch.no_grad():
+        scene = Scene.empty()
+        img = golden.render_frame(scene, mats, sky, 0)
+        d = primary_ray_directions(mats, sky.width, sky.height)
+        a = 0.5 * (d[..., 1:2] + 1.0)
+        want = torch.tensor([0.5, 0.7, 1.0], device=d.device) * (1 - a) + a
+    err = float((img - want).abs().max())
+    check(scene.device.type == "cuda" and err <= 1e-5,
+          f"Scene.empty() on {scene.device} renders the gradient sky at "
+          f"{sky.width}^2, max |diff| {err:.3g} <= 1e-5")
 
 
 def spread(x):
@@ -666,6 +738,7 @@ def pallas_phase(smi, cfg, unsplit, ptxas):
         b = sweep.render_frame(scene, mats, cfg, 5)
     check(torch.equal(a, full), "the 'pallas' frame walking live lanes only "
           "equals the frame walking every lane, bit for bit")
+    pallas_rows(cfg, scene, mats)
     agree = image_agreement(a, b, 1e-3)
     check(agree >= 0.99, f"the 'pallas' frame matches the sweep frame to "
           f"1e-3 on {agree:.4f} of pixels (>= 0.99)")
@@ -1782,6 +1855,8 @@ def dp_tasks():
              trainable=["albedo", "vertices", "sphere_position"],
              renderer="auto", lr=1e-2),
         dict(name="replicate", kind="replicate", scene="cornell", cfg=CORNELL),
+        dict(name="render_image", kind="render_image", scene="cornell",
+             cfg=CORNELL, frame=2),
     ]
 
 
@@ -1845,6 +1920,12 @@ def dp_phase(smi):
     check(all(v["render_bunny"]["B1"] == 5 and v["dryrun_sweep"]["B1"] > 0
               for v in launches.values()),
           f"[dp] each rank's band went through B1: {launches}")
+
+    img = single["render_image"]["image"]
+    check(all(torch.equal(r["render_image"]["image"], img) for r in ranks),
+          "[dp] render_image_sharded's gathered Cornell 1024^2 frame (brute "
+          "force, 512 rows per rank) equals the single-process frame bit for "
+          "bit on both ranks")
 
     albedo = single["replicate"]["albedo"]   # rank 0 keeps its own
     check(all(torch.equal(r["replicate"]["albedo"], albedo)
@@ -2357,6 +2438,90 @@ def bench_step_parity(smi, scene, mats):
     return dict(loss=float(loss), scalar=float(scalar))
 
 
+def looped_scaling(n, scene, mats, cfg):
+    """The scaling row's step with its n band frames rendered one after
+    another through ``golden.render_rows`` (the form before the batch):
+    step -> (images, loss, grads)."""
+    band = cfg.height // n
+
+    def loss_grad(step):
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in reg.get_params(scene, None,
+                                             prender.BENCH_TRAINABLE).items()}
+        s, _ = reg.apply_params(scene, None, params)
+        imgs = [golden.render_rows(s, mats, cfg, step * n + i, 0, band)
+                for i in range(n)]
+        loss = sum(torch.mean(img ** 2) for img in imgs) / n
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        return torch.stack(imgs).detach(), loss.detach(), {
+            k: g for k, g in zip(params, grads) if g is not None}
+    return loss_grad
+
+
+def device_launches(fn):
+    """The kernels and copies ``fn`` puts on the card (torch.profiler, CUDA
+    activity only: cheap to read back for the ~50,000 of a looped step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation)
+
+
+def bench_scaling_parity(smi):
+    """The bench's scaling_efficiency_8 step on its 1024^2 Cornell box: the
+    batched step (``bench.scaling_loss_grad``, 8 band frames of 128 rows as
+    one batch) against the looped one, images bit for bit, loss and grads
+    to rtol 1e-5; each step's ms (host clock, synchronized, the best of 3
+    after a warm-up), its launches on the card (``device_launches``), and
+    the efficiency each form gives against the bench's full-frame step
+    timed alike, T(full) / T(8 band frames) -> record."""
+    n, size = 8, 1024
+    args = bench.parse_args([])[1]
+    scene, cam, sky = bench.build_scene(args.scene, args.renderer,
+                                        args.subdiv, "cuda")
+    cfg = bench.make_config(args, size, sky)
+    mats = camera_matrices(cam, 1.0)
+    target = torch.zeros((size, size, 3), device="cuda")
+    full = bench.make_step(cfg, "auto")
+    full(scene, mats, 1, target)
+    full_ms = min(sync_time(lambda: full(scene, mats, 2, target))[1]
+                  for _ in range(3)) * 1e3
+    rec, res = dict(full_ms=full_ms), {}
+    for form, fn in (("batched", bench.scaling_loss_grad(n, scene, mats, cfg)),
+                     ("looped", looped_scaling(n, scene, mats, cfg))):
+        res[form] = fn(1)
+        ms = min(sync_time(lambda: fn(2))[1] for _ in range(3)) * 1e3
+        launches = device_launches(lambda: fn(3))
+        rec[form] = dict(ms=ms, launches=launches, efficiency=full_ms / ms)
+        print(f"[bench] scaling_efficiency_8 step, {form}: {ms:.2f} ms (host "
+              f"clock, synchronized), {launches} launches, efficiency "
+              f"against the {full_ms:.2f} ms full step {full_ms / ms:.4f}, "
+              f"on {smi}", flush=True)
+    (img, loss, grads), (want_img, want_loss, want) = (res["batched"],
+                                                       res["looped"])
+    rel = {k: float(((grads[k] - want[k]).abs()
+                     / want[k].abs().clamp_min(1e-30)).max()) for k in want}
+    ok = set(grads) == set(want) and all(
+        torch.allclose(grads[k], want[k], rtol=1e-5, atol=0) for k in want)
+    check(torch.equal(img, want_img) and ok and math.isclose(
+        float(loss), float(want_loss), rel_tol=1e-5),
+        f"[bench] the batched scaling step's {n} x {size // n} x {size} "
+        f"images equal the looped step's bit for bit; loss "
+        f"{float(loss):.9g} vs {float(want_loss):.9g} and grads ({rel}) "
+        "within rtol 1e-5")
+    check(rec["batched"]["launches"] * 4 <= rec["looped"]["launches"],
+          f"[bench] the batched step issues far fewer launches than the "
+          f"loop: {rec['batched']['launches']} against "
+          f"{rec['looped']['launches']}")
+    return dict(rec, grad_rel_err=rel, loss=float(loss))
+
+
 def bench_walk(smi):
     """B3 at the shapes the [bench] 327,680-triangle "pallas" run gives it:
     the bench's own scene (``bunny_like_scene(SCENE_SUBDIV)`` in draws of
@@ -2387,13 +2552,15 @@ def bench_phase(smi, scene, mats):
     bunny through "pallas" (B3), the 327,680-triangle bunny through "auto"
     (B1) and "pallas" (B3), the single triangle; then, in process, its bunny
     and step against this script's (``bench_step_parity``) and B3 against
-    its twin on the 327,680-triangle "pallas" scene (``bench_walk``) -> its
-    JSON record."""
+    its twin on the 327,680-triangle "pallas" scene (``bench_walk``), and
+    the scaling row's batched step against the looped one
+    (``bench_scaling_parity``) -> its JSON record."""
     t0 = time.perf_counter()
     runs = {label: bench_run(smi, label, args) for label, args in BENCH_RUNS}
     parity = bench_step_parity(smi, scene, mats)
+    scaling = bench_scaling_parity(smi)
     walk = bench_walk(smi)
-    return dict(runs=runs, step_parity=parity, B3=walk,
+    return dict(runs=runs, step_parity=parity, scaling_step=scaling, B3=walk,
                 phase_s=time.perf_counter() - t0, card=smi)
 
 
@@ -2535,6 +2702,7 @@ def main() -> int:
     agree = image_agreement(img_k, img_p, 1e-5)
     check(agree >= 0.999, f"kernel and plain-twin frames agree to 1e-5 on "
           f"{agree:.6f} of pixels (>= 0.999)")
+    sweep_wrappers(cfg, scene, mats, img_k)
 
     # the sweep path against the brute-force path on a small frame
     small = RenderConfig(**dict(BUNNY, width=48, height=48))
@@ -2565,6 +2733,7 @@ def main() -> int:
     print(f"[cornell] {cms:.2f} ms/frame, "
           f"{1024 * 1024 * 5 / (cms / 1e3) / 1e6:.2f} Mrays/s, "
           f"peak {cpeak:.2f} GiB, on {smi}", flush=True)
+    empty_sky(cmats, ccfg)
 
     # -- 6. the "pallas" path: the split bunny through the BVH walk ---------
     b3, split_scene = pallas_phase(

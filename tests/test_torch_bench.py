@@ -11,6 +11,16 @@ against the JAX package's ``bench.py``, on the CPU at 16 x 16.
 - The JSON line, its keys and metric strings: the strings are read from
   ``bench.py``'s source (``bench_py_metric`` evaluates its ``"metric"``
   expressions with the run's values), never by importing it.
+- The scaling row's step (C4): on the Cornell box, n = 8 band frames of
+  2 rows, one batch (``golden.render_rows_frames``): its images bit for
+  bit, loss and grads rtol 1e-5 against the same frames rendered one
+  after another; against the JAX form ``bench.py:_scaling_at`` builds
+  (``jax.vmap`` of ``golden.render_rows`` over the frames under
+  ``jax.value_and_grad``, jitted) with the Cornell grad tests' tolerances,
+  whose outlier bound covers the roundoff-decided paths of ROADMAP C1: at
+  most 1 % of pixels off by more than 1e-3, loss rtol 1e-3, each grad leaf
+  within 1e-3 of its largest |g|.  Batching refuses ``pixel_jitter`` and
+  ``edge_grads``.
 - A row that raises ends the run non-zero; without a card and without
   ``--device`` the bench exits non-zero; the module imports no JAX.
 """
@@ -37,8 +47,11 @@ from wc_path_tracer_tpu.scene.camera import camera_matrices as jcamera_matrices
 from wc_path_tracer_tpu.utils.config import RenderConfig as JConfig
 
 from wc_path_tracer_tpu_torch import bench
+from wc_path_tracer_tpu_torch.optim import params as reg
 from wc_path_tracer_tpu_torch.parallel import render as prender
-from wc_path_tracer_tpu_torch.scene.camera import camera_matrices
+from wc_path_tracer_tpu_torch.render import golden
+from wc_path_tracer_tpu_torch.scene.camera import (camera_matrices,
+                                                   matrices_from_numpy)
 
 torch.set_num_threads(2)
 
@@ -76,10 +89,14 @@ def jax_case(name):
     else:
         scene, cam = jbuiltin.default_scene(), jbuiltin.default_camera()
         sky = "gradient"
-    cfg = JConfig(width=SIZE, height=SIZE, samples=1, max_bounces=BOUNCES,
-                  sky=sky, use_nee=False, use_rr=False, compact=False,
-                  compact_blocks=16, ray_sort="dynamic", row_chunks=0)
-    return scene, jcamera_matrices(cam, 1.0), cfg
+    return scene, jcamera_matrices(cam, 1.0), jax_config(sky)
+
+
+def jax_config(sky):
+    """The JAX config bench.py makes at SIZE, BOUNCES."""
+    return JConfig(width=SIZE, height=SIZE, samples=1, max_bounces=BOUNCES,
+                   sky=sky, use_nee=False, use_rr=False, compact=False,
+                   compact_blocks=16, ray_sort="dynamic", row_chunks=0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,6 +162,97 @@ def test_alive_count_matches_jax(name):
     want = int(jgolden.count_alive_segments(jscene, jmats, jcfg,
                                             jnp.uint32(1)))
     assert bench.alive_segments(scene, mats, cfg, "auto") == want
+
+
+N_BANDS, SCALING_STEP = 8, 1     # frames 8..15, each rows [0, 2)
+
+
+def looped_scaling(scene, mats, cfg, step):
+    """The scaling step with its band frames rendered one after another:
+    (images, loss, grads)."""
+    band = cfg.height // N_BANDS
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in reg.get_params(scene, None, TRAINABLE).items()}
+    s, _ = reg.apply_params(scene, None, params)
+    imgs = [golden.render_rows(s, mats, cfg, step * N_BANDS + i, 0, band)
+            for i in range(N_BANDS)]
+    loss = sum(torch.mean(img ** 2) for img in imgs) / N_BANDS
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return (torch.stack(imgs).detach(), loss.detach(),
+            dict(zip(params, grads)))
+
+
+@pytest.fixture(scope="module")
+def scaling_case():
+    """The Cornell box with the JAX package's camera matrices, the bench's
+    config at 16^2, 2 bounces, and ``scaling_loss_grad``'s step."""
+    jscene, jcam = jbuiltin.cornell_box_scene()
+    jm = jcamera_matrices(jcam, 1.0)
+    scene, _, sky = bench.build_scene("cornell", "auto", 5, "cpu")
+    mats = matrices_from_numpy(np.asarray(jm.inverse_projection),
+                               np.asarray(jm.inverse_view),
+                               np.asarray(jm.position), "cpu")
+    cfg = bench.make_config(bench.parse_args(["--bounces", str(BOUNCES)])[1],
+                            SIZE, sky)
+    got = bench.scaling_loss_grad(N_BANDS, scene, mats, cfg)(SCALING_STEP)
+    return jscene, jm, scene, mats, cfg, got
+
+
+def test_scaling_batch_equals_loop(scaling_case):
+    _, _, scene, mats, cfg, (img, loss, grads) = scaling_case
+    want_img, want_loss, want = looped_scaling(scene, mats, cfg,
+                                               SCALING_STEP)
+    assert img.shape == (N_BANDS, SIZE // N_BANDS, SIZE, 3)
+    assert torch.equal(img, want_img)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    assert set(grads) == set(TRAINABLE)
+    for k in TRAINABLE:
+        np.testing.assert_allclose(grads[k].numpy(), want[k].numpy(),
+                                   rtol=1e-5, err_msg=k)
+
+
+def test_scaling_batch_matches_jax_vmap(scaling_case):
+    """``bench.py:_scaling_at``'s jitted loss (``jax.vmap`` of
+    ``golden.render_rows`` over the frames, the mean of each frame's mean
+    squared error), its value and grads with the images as ``aux``."""
+    jscene, jm, _, _, _, (img, loss, grads) = scaling_case
+    jcfg = jax_config("black")
+    band = SIZE // N_BANDS
+
+    def loss_fn(params, frame):
+        m = dataclasses.replace(jscene.materials, **params)
+        s = dataclasses.replace(jscene, materials=m)
+
+        def one(f):
+            rows = jgolden.render_rows(s, jm, jcfg, f, jnp.uint32(0), band)
+            return jnp.mean(rows ** 2), rows
+
+        frames = frame + jnp.arange(N_BANDS, dtype=jnp.uint32)
+        losses, rows = jax.vmap(one)(frames)
+        return jnp.mean(losses), rows
+
+    params = {k: getattr(jscene.materials, k) for k in TRAINABLE}
+    (want_loss, want_img), want = jax.jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(params, jnp.uint32(SCALING_STEP * N_BANDS))
+    flipped = np.abs(img.numpy() - np.asarray(want_img)).max(-1) > 1e-3
+    assert flipped.mean() <= 0.01, flipped.mean()
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-3)
+    for k in TRAINABLE:
+        w = np.asarray(want[k])
+        scale = float(np.abs(w).max())
+        if scale == 0.0:   # roughness: the box is Lambertian only
+            assert not grads[k].any(), k
+            continue
+        err = np.abs(grads[k].numpy() - w).max() / scale
+        assert err <= 1e-3, (k, err)
+
+
+@pytest.mark.parametrize("field", ["pixel_jitter", "edge_grads"])
+def test_scaling_batch_refuses(field, scaling_case):
+    _, _, scene, mats, cfg, _ = scaling_case
+    with pytest.raises(ValueError, match=f"cfg.{field}"):
+        golden.render_rows_frames(scene, mats, cfg.replace(**{field: True}),
+                                  [0, 1], 0, 2)
 
 
 def run_bench(args, code=None, env=None):

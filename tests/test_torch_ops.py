@@ -93,6 +93,64 @@ def test_random_direction_stream(masked):
                                    rtol=1e-5, atol=2e-6)
 
 
+def test_pixel_seed_per_lane_frames_bit_exact():
+    """One frame count per lane, as a tensor, wrapping mod 2^32 past it
+    (the JAX function takes uint32 arrays)."""
+    pix = np.arange(N, dtype=np.uint32)
+    frames = np.random.default_rng(4).integers(0, 2**32, N, dtype=np.uint32)
+    frames[:4] = (0, 1, 2**32 - 2, 2**32 - 1)
+    want = jrng.pixel_seed(jnp.asarray(pix), jnp.asarray(frames))
+    _same_u32(rng.pixel_seed(_state(pix), _state(frames)), want)
+    # the same counts past 2^32 (int64 lanes) and negative: mod 2^32
+    wrapped = frames.astype(np.int64) + np.where(pix % 2 == 0, 2**32, -2**32)
+    _same_u32(rng.pixel_seed(_state(pix), _t(wrapped)), want)
+    for frame in (5, 2**32 + 5):
+        _same_u32(rng.pixel_seed(_state(pix), torch.tensor(frame)),
+                  jrng.pixel_seed(jnp.asarray(pix), np.uint32(frame % 2**32)))
+
+
+def test_rand_u32_stream_bit_exact():
+    s_t, s_j = _state(_u32(5)), jnp.asarray(_u32(5))
+    for _ in range(4):
+        v_t, s_t = rng.rand_u32(s_t)
+        v_j, s_j = jrng.rand_u32(s_j)
+        _same_u32(v_t, v_j)
+        _same_u32(s_t, s_j)
+        assert torch.equal(v_t, s_t)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_random_hemisphere_direction_stream(masked):
+    """The new states bit for bit against the JAX function, and so the side
+    of the normal each draw is flipped to wherever |n . d| is not at the
+    roundoff of the direction's floats; those floats, as in
+    ``test_random_direction_stream``, to rtol 1e-5.  Every finite draw lies
+    on the normal's side (tests/test_rng.py:112-116), and sign 0 on the
+    plane zeroes it."""
+    r = np.random.default_rng(6)
+    normal = r.normal(size=(N, 3)).astype(np.float32)
+    normal[:8] = (0.0, 1.0, 0.0)
+    mask = r.random(N) < 0.5
+    m_t, m_j = (_t(mask), jnp.asarray(mask)) if masked else (None, None)
+    d_t, s_t = rng.random_hemisphere_direction(_t(normal), _state(_u32(7)),
+                                               m_t)
+    d_j, s_j = jrng.random_hemisphere_direction(jnp.asarray(normal),
+                                                jnp.asarray(_u32(7)), m_j)
+    _same_u32(s_t, s_j)
+    d_t, d_j = d_t.numpy(), np.asarray(d_j)
+    fin = np.all(np.isfinite(d_j), axis=1)    # log(0) lanes are inf/NaN
+    dot = np.sum(d_t * normal, -1)
+    clear = fin & (np.abs(dot) > 1e-5 * np.linalg.norm(normal, axis=-1))
+    np.testing.assert_array_equal(np.sign(dot[clear]),
+                                  np.sign(np.sum(d_j * normal, -1)[clear]))
+    np.testing.assert_allclose(d_t[fin], d_j[fin], rtol=1e-5, atol=2e-6)
+    assert (dot[np.all(np.isfinite(d_t), axis=1)] >= 0).all()
+    d, _ = rng.random_direction(_state(_u32(7))[:1])
+    flat = torch.stack([d[0, 1], -d[0, 0], torch.tensor(0.0)])[None]
+    d0, _ = rng.random_hemisphere_direction(flat, _state(_u32(7))[:1])
+    assert float(torch.sum(flat * d)) == 0.0 and not d0.any()
+
+
 def _rays(n, seed):
     r = np.random.default_rng(seed)
     o = r.normal(size=(n, 3)).astype(np.float32)

@@ -31,9 +31,9 @@ it is 1.0.
 Under ``--scene cornell``, neither ``--small`` nor another renderer than
 "auto", the record carries three rows: ``bvh_row`` (the 512^2 glTF bunny
 through the cluster sweep), ``bsdf_row`` (the full-BSDF box, 1024^2, 8
-bounces, Russian roulette) and ``scaling_efficiency_8`` (one frame against 8
-band frames of 1/8 of its rows).  A row that raises ends the run with the
-traceback and a non-zero exit, and no JSON line.
+bounces, Russian roulette) and ``scaling_efficiency_8`` (one frame against
+a batch of 8 band frames of 1/8 of its rows).  A row that raises ends the
+run with the traceback and a non-zero exit, and no JSON line.
 """
 
 from __future__ import annotations
@@ -294,32 +294,43 @@ def bsdf_row(device, size: int = 1024, bounces: int = 8):
     return row
 
 
-def scaling_efficiency(n: int, scene, mats, cfg, dt_full: float,
-                       device) -> float:
-    """Per-device efficiency of n-way row sharding, T(full) / (n * T(band)):
-    each step renders ``n`` frames of the first H/n rows (the band one of n
-    ranks renders, ``parallel/render.py``) through brute force and takes the
-    bench grads of their mean loss; T(band) is the time per band frame.  The
-    JAX bench maps the n frames in one program; here they run one after
-    another, the same work."""
+def scaling_loss_grad(n: int, scene, mats, cfg):
+    """The scaling row's step: step -> (images (n, H/n, W, 3), loss, grads).
+    It renders ``n`` frames, ``step * n + i`` for i < n, of the first H/n
+    rows (the band one of n ranks renders, ``parallel/render.py``) through
+    brute force as one batch (``golden.render_rows_frames``, the JAX
+    bench's ``jax.vmap`` over frames), and takes the grads over
+    ``BENCH_TRAINABLE`` of the mean over the frames of each frame's mean
+    squared error against a zero target."""
     from wc_path_tracer_tpu_torch.optim import params as reg
     from wc_path_tracer_tpu_torch.parallel import render as prender
     from wc_path_tracer_tpu_torch.render import golden
     band = cfg.height // n
-    target = torch.zeros((band, cfg.width, 3), device=device)
 
-    def step(frame):
+    def loss_grad(step):
         params = {k: v.detach().clone().requires_grad_(True)
                   for k, v in reg.get_params(scene, None,
                                              prender.BENCH_TRAINABLE).items()}
         s, _ = reg.apply_params(scene, None, params)
-        loss = sum(torch.mean((golden.render_rows(
-            s, mats, cfg, frame * n + i, 0, band) - target) ** 2)
-            for i in range(n)) / n
+        img = golden.render_rows_frames(
+            s, mats, cfg, [step * n + i for i in range(n)], 0, band)
+        loss = torch.mean(torch.mean(img ** 2, dim=(1, 2, 3)))
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
-        return fold(loss.detach(), {k: g for k, g in zip(params, grads)
-                                    if g is not None})
+        return img.detach(), loss.detach(), {
+            k: g for k, g in zip(params, grads) if g is not None}
+    return loss_grad
+
+
+def scaling_efficiency(n: int, scene, mats, cfg, dt_full: float,
+                       device) -> float:
+    """Per-device efficiency of n-way row sharding, T(full) / (n * T(band)),
+    T(band) the time per band frame of ``scaling_loss_grad``'s steps, whose
+    n band frames are one batch with as many lanes as a full frame."""
+    loss_grad = scaling_loss_grad(n, scene, mats, cfg)
+
+    def step(frame):
+        return fold(*loss_grad(frame)[1:])
     label = f"scaling_efficiency_{n}"
     warm_up(label, step)
     best = time_steps(label, step, range(1, SCALING_ITERS + 1), device,

@@ -48,10 +48,18 @@ def u32_to_float(x):
     return x.to(torch.float32) * _INV_2_32
 
 
+def rand_u32(state):
+    """One draw of the reference's ``rand`` chain as the raw uint32 ->
+    (value, new_state); ``rand`` stores its output back into the state
+    (Random.glsl:30), so value == new_state."""
+    x = _permute(state)
+    return x, x
+
+
 def rand(state):
     """Draw a float in [0, 1] and advance the state -> (value, new_state)."""
-    x = _permute(state)
-    return u32_to_float(x), x
+    x, state = rand_u32(state)
+    return u32_to_float(x), state
 
 
 def rand_masked(state, mask):
@@ -85,8 +93,21 @@ def random_direction(state, mask=None):
     return torch.stack([x / norm, y / norm, z / norm], dim=-1), state
 
 
-def pixel_seed(pixel_index, frame_count: int):
+def random_hemisphere_direction(normal, state, mask=None):
+    """``random_direction`` flipped into the hemisphere of ``normal`` (...,
+    3) by sign(normal . d), which is 0 on the plane (Random.glsl:58-62)."""
+    d, state = random_direction(state, mask)
+    s = torch.sign(torch.sum(normal * d, dim=-1, keepdim=True))
+    return d * s, state
+
+
+def pixel_seed(pixel_index, frame_count):
     """Per-pixel per-frame seed: pcg_hash(pixel + frame*719393) mod 2^32
-    (pathTracer.comp:304-305)."""
-    frame = (int(frame_count) & MASK32) * 719393
+    (pathTracer.comp:304-305).  ``frame_count`` is an int or an integer
+    tensor that broadcasts against ``pixel_index`` (one frame count per
+    lane); either is taken mod 2^32, as the JAX package's uint32."""
+    if isinstance(frame_count, torch.Tensor):
+        frame = (frame_count.to(torch.int64) & MASK32) * 719393
+    else:
+        frame = (int(frame_count) & MASK32) * 719393
     return pcg_hash((pixel_index.to(torch.int64) + frame) & MASK32)

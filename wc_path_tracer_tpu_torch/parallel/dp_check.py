@@ -13,7 +13,8 @@ runs each task of ``spec.json`` over the group and writes what it computed
 returns their results; ``run_task(task, device, None)`` computes the same
 task in this process alone, the reference the ranks are held against.
 
-A task is a dict: ``name``; ``kind`` ("render", "loss_grad", "train" or
+A task is a dict: ``name``; ``kind`` ("render", "render_image" (the
+brute-force ``render_image_sharded``), "loss_grad", "train" or
 "replicate", or a kind of the caller's ``extra``); ``scene`` ("cornell",
 "bunny_like2" or "bunny_gltf"); ``cfg`` (RenderConfig fields);
 ``renderer``; ``frame``; and per kind ``trainable``, ``lr``, ``timed`` (steps timed on the host
@@ -81,10 +82,13 @@ def run_task(task: dict, device, group=None, extra=None) -> dict:
     launches.reset_counts()
     out = {}
     kind = task["kind"]
+    mats = camera_matrices(cam, cfg.width / cfg.height)
     if kind == "render":
         fn = prender.sharded_render_frame(cfg, renderer, group)
-        out["image"] = fn(scene, camera_matrices(cam, cfg.width / cfg.height),
-                          frame)
+        out["image"] = fn(scene, mats, frame)
+    elif kind == "render_image":
+        out["image"] = prender.render_image_sharded(scene, mats, cfg, frame,
+                                                    group)
     elif kind == "loss_grad":
         fn = prender.sharded_scene_loss_grad(cfg, task["trainable"],
                                              renderer, group)

@@ -90,6 +90,14 @@ def sharded_render_frame(cfg: RenderConfig, renderer="golden", group=None):
     return render
 
 
+def render_image_sharded(scene, mats, cfg: RenderConfig, frame_count: int,
+                         group=None):
+    """Build and call the sharded brute-force render: the full (H, W, 3)
+    frame on every rank of ``group``."""
+    return sharded_render_frame(cfg, "golden", group)(scene, mats,
+                                                      frame_count)
+
+
 def sharded_scene_loss_grad(cfg: RenderConfig, trainable,
                             renderer="golden", group=None):
     """(scene, camera, frame_count, target) -> (loss, grads) over ``group``

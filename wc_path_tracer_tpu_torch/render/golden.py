@@ -1065,6 +1065,41 @@ def render_rows(scene: Scene, mats: CameraMatrices, cfg: RenderConfig,
     return (acc / float(cfg.samples)).view(num_rows, W, 3)
 
 
+def render_rows_frames(scene: Scene, mats: CameraMatrices, cfg: RenderConfig,
+                       frame_counts, y0: int, num_rows: int,
+                       intersect_fn=None):
+    """Rows [y0, y0 + num_rows) of n frames, one per entry of
+    ``frame_counts`` -> (n, num_rows, W, 3): frame i equals
+    ``render_rows(..., frame_counts[i], y0, num_rows)`` bit for bit, but
+    the n frames go through the transport as one batch of n * num_rows * W
+    lanes, one ``trace_rays`` per sample (the JAX package maps
+    ``render_rows`` over frames with ``jax.vmap``).  Lanes repeat the
+    band's pixel indices per frame and carry their own frame count into
+    ``rng.pixel_seed``.  Jittered pixels and the edge estimator are not
+    batched: either raises."""
+    for field in ("pixel_jitter", "edge_grads"):
+        if getattr(cfg, field):
+            raise ValueError(f"render_rows_frames does not batch "
+                             f"cfg.{field}=True; call render_rows per frame")
+    H, W = cfg.height, cfg.width
+    dev = mats.position.device
+    frames = torch.as_tensor(frame_counts, dtype=torch.int64, device=dev)
+    n, P = frames.shape[0], num_rows * W
+    xs = torch.arange(W, device=dev)[None, :]
+    ys = (y0 + torch.arange(num_rows, device=dev))[:, None]
+    pixel_index = (xs + ys * W).reshape(-1)
+    seed = rng.pixel_seed(pixel_index.repeat(n),
+                          frames.repeat_interleave(P))
+    origin = mats.position.expand(n * P, 3)
+    dirs = primary_ray_directions(mats, W, H)[y0:y0 + num_rows].reshape(
+        -1, 3).repeat(n, 1)
+    acc = torch.zeros((n * P, 3), device=dev)
+    for _ in range(cfg.samples):
+        light, seed = trace_rays(scene, origin, dirs, seed, cfg, intersect_fn)
+        acc = acc + light
+    return (acc / float(cfg.samples)).view(n, num_rows, W, 3)
+
+
 def render_frame(scene: Scene, mats: CameraMatrices, cfg: RenderConfig,
                  frame_count: int, intersect_fn=None):
     """One progressive frame (H, W, 3): the average of cfg.samples paths per

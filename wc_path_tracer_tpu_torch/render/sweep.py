@@ -292,7 +292,18 @@ def make_intersect_fn(scene: Scene, cfg: RenderConfig | None = None,
     return fn
 
 
+def trace_rays(scene, origin, direction, seed, cfg):
+    """``golden.trace_rays`` of a ray batch through the cluster sweep."""
+    return golden.trace_rays(scene, origin, direction, seed, cfg,
+                             intersect_fn=make_intersect_fn(scene, cfg))
+
+
+def render_rows(scene, mats, cfg, frame_count, y0, num_rows):
+    """Rows [y0, y0 + num_rows) through the cluster sweep."""
+    return golden.render_rows(scene, mats, cfg, frame_count, y0, num_rows,
+                              intersect_fn=make_intersect_fn(scene, cfg))
+
+
 def render_frame(scene, mats, cfg, frame_count):
     """One frame through the cluster sweep (golden transport)."""
-    return golden.render_rows(scene, mats, cfg, frame_count, 0, cfg.height,
-                              intersect_fn=make_intersect_fn(scene, cfg))
+    return render_rows(scene, mats, cfg, frame_count, 0, cfg.height)

@@ -113,6 +113,13 @@ def render_frame(scene, mats, cfg, frame_count):
                                intersect_fn=intersect_scene_bvh)
 
 
+def render_rows_pallas(scene, mats, cfg, frame_count, y0, num_rows):
+    """Rows [y0, y0 + num_rows) with the BVH-walk kernel as the closest-hit
+    backend."""
+    return golden.render_rows(scene, mats, cfg, frame_count, y0, num_rows,
+                              intersect_fn=make_intersect_fn_pallas(scene))
+
+
 def render_frame_pallas(scene, mats, cfg, frame_count):
     """One frame with the BVH-walk kernel as the closest-hit backend
     (dispatch name "pallas"), walking only live lanes.  The kernel's tables

@@ -56,6 +56,23 @@ class Materials:
     def capacity(self) -> int:
         return self.mtype.shape[0]
 
+    @staticmethod
+    def empty(capacity: int, device=None) -> "Materials":
+        """No live materials: the reference struct defaults
+        (src/PathTracingRenderer.jai:58-70), absorption_strength and ior 1,
+        everything else 0 (type METAL)."""
+        dev = resolve_device(device)
+
+        def z(*shape):
+            return torch.zeros((capacity,) + shape, device=dev)
+        return Materials(
+            mtype=torch.zeros(capacity, dtype=torch.int32, device=dev),
+            albedo=z(3), emission=z(3), emission_strength=z(), metallic=z(),
+            roughness=z(), absorption=z(3),
+            absorption_strength=torch.ones(capacity, device=dev),
+            ior=torch.ones(capacity, device=dev),
+            count=torch.tensor(0, dtype=torch.int32, device=dev))
+
     def to(self, device) -> "Materials":
         return _moved(self, device)
 
@@ -72,6 +89,16 @@ class Spheres:
     @property
     def capacity(self) -> int:
         return self.radius.shape[0]
+
+    @staticmethod
+    def empty(capacity: int, device=None) -> "Spheres":
+        """No live spheres, every slot zero."""
+        dev = resolve_device(device)
+        return Spheres(
+            position=torch.zeros((capacity, 3), device=dev),
+            radius=torch.zeros(capacity, device=dev),
+            material=torch.zeros(capacity, dtype=torch.int32, device=dev),
+            count=torch.tensor(0, dtype=torch.int32, device=dev))
 
     def to(self, device) -> "Spheres":
         return _moved(self, device)
@@ -103,8 +130,55 @@ class MeshBank:
     max_leaf_tris: int = 2            # largest BVH leaf, in triangles
 
     @property
+    def vertex_capacity(self) -> int:
+        return self.vertices.shape[0]
+
+    @property
+    def index_capacity(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def node_capacity(self) -> int:
+        return self.bvh_min.shape[0]
+
+    @property
+    def draw_capacity(self) -> int:
+        return self.draw_index_count.shape[0]
+
+    @property
     def triangle_capacity(self) -> int:
         return self.indices.shape[0] // 3
+
+    @staticmethod
+    def empty(vertex_capacity: int = 8, index_capacity: int = 24,
+              node_capacity: int = 8, draw_capacity: int = 1,
+              device=None) -> "MeshBank":
+        """No draws: the padding ``SceneBuilder.build`` writes (``tri_draw``
+        and ``bvh_escape`` -1, boxes inverted at +-FLT_MAX), the index
+        capacity rounded up to a multiple of 3."""
+        dev = resolve_device(device)
+        index_capacity = 3 * ((index_capacity + 2) // 3)
+        T = index_capacity // 3
+
+        def full(shape, value, dtype=torch.int32):
+            return torch.full(shape, value, dtype=dtype, device=dev)
+        return MeshBank(
+            vertices=full((vertex_capacity, 3), 0.0, torch.float32),
+            normals=full((vertex_capacity, 3), 0.0, torch.float32),
+            uvs=full((vertex_capacity, 2), 0.0, torch.float32),
+            indices=full((index_capacity,), 0),
+            tri_material=full((T,), 0), tri_draw=full((T,), -1),
+            tri_neighbor=full((T, 3), -1),
+            bvh_min=full((node_capacity, 3), F32_MAX, torch.float32),
+            bvh_max=full((node_capacity, 3), -F32_MAX, torch.float32),
+            bvh_left=full((node_capacity,), 0),
+            bvh_count=full((node_capacity,), 0),
+            bvh_escape=full((node_capacity,), -1),
+            draw_vertex_offset=full((draw_capacity,), 0),
+            draw_index_offset=full((draw_capacity,), 0),
+            draw_node_offset=full((draw_capacity,), 0),
+            draw_index_count=full((draw_capacity,), 0),
+            draw_count=full((), 0), max_leaf_tris=1)
 
     def to(self, device) -> "MeshBank":
         return _moved(self, device)
@@ -119,6 +193,16 @@ class Scene:
     @property
     def device(self) -> torch.device:
         return self.mesh.vertices.device
+
+    @staticmethod
+    def empty(material_capacity: int = 8, sphere_capacity: int = 8,
+              mesh: MeshBank | None = None, device=None) -> "Scene":
+        """A scene with nothing in it (``mesh`` None: ``MeshBank.empty()``);
+        it renders the sky alone."""
+        return Scene(materials=Materials.empty(material_capacity, device),
+                     spheres=Spheres.empty(sphere_capacity, device),
+                     mesh=mesh if mesh is not None
+                     else MeshBank.empty(device=device))
 
     def to(self, device) -> "Scene":
         return Scene(self.materials.to(device), self.spheres.to(device),
@@ -245,30 +329,21 @@ class SceneBuilder:
     def build(self, device=None) -> Scene:
         dev = resolve_device(device)
         leaves = {}
-        mcap = _round_up_pow2(max(len(self.materials), 1))
-        f3 = ("albedo", "emission", "absorption")
-        mats = {k: np.zeros((mcap, 3) if k in f3 else mcap, np.float32)
-                for k in ("albedo", "emission", "emission_strength",
-                          "metallic", "roughness", "absorption")}
-        mats["mtype"] = np.zeros(mcap, np.int32)
-        mats["absorption_strength"] = np.ones(mcap, np.float32)
-        mats["ior"] = np.ones(mcap, np.float32)
+        mats = _host_leaves(Materials.empty(
+            _round_up_pow2(max(len(self.materials), 1)), "cpu"))
         for i, m in enumerate(self.materials):
             for k, col in mats.items():
-                col[i] = m[k]
+                if k != "count":
+                    col[i] = m[k]
         mats["count"] = np.asarray(len(self.materials), np.int32)
         leaves.update({f"materials.{k}": v for k, v in mats.items()})
 
-        scap = _round_up_pow2(max(len(self.spheres), 1))
-        pos = np.zeros((scap, 3), np.float32)
-        rad = np.zeros(scap, np.float32)
-        mat = np.zeros(scap, np.int32)
+        sph = _host_leaves(Spheres.empty(
+            _round_up_pow2(max(len(self.spheres), 1)), "cpu"))
         for i, (p, r, m) in enumerate(self.spheres):
-            pos[i], rad[i], mat[i] = p, r, m
-        leaves.update({
-            "spheres.position": pos, "spheres.radius": rad,
-            "spheres.material": mat,
-            "spheres.count": np.asarray(len(self.spheres), np.int32)})
+            sph["position"][i], sph["radius"][i], sph["material"][i] = p, r, m
+        sph["count"] = np.asarray(len(self.spheres), np.int32)
+        leaves.update({f"spheres.{k}": v for k, v in sph.items()})
 
         mesh, max_leaf = self._mesh_leaves()
         leaves.update({f"mesh.{k}": v for k, v in mesh.items()})
@@ -282,25 +357,8 @@ class SceneBuilder:
         icap = 3 * ((_round_up_pow2(max(ni, 24)) + 2) // 3)
         ncap = _round_up_pow2(max(nn, 8))
         dcap = _round_up_pow2(max(len(self.meshes), 1))
-
-        out = dict(
-            vertices=np.zeros((vcap, 3), np.float32),
-            normals=np.zeros((vcap, 3), np.float32),
-            uvs=np.zeros((vcap, 2), np.float32),
-            indices=np.zeros(icap, np.int32),
-            tri_material=np.zeros(icap // 3, np.int32),
-            tri_draw=np.full(icap // 3, -1, np.int32),
-            tri_neighbor=np.full((icap // 3, 3), -1, np.int32),
-            bvh_min=np.full((ncap, 3), F32_MAX, np.float32),
-            bvh_max=np.full((ncap, 3), -F32_MAX, np.float32),
-            bvh_left=np.zeros(ncap, np.int32),
-            bvh_count=np.zeros(ncap, np.int32),
-            bvh_escape=np.full(ncap, -1, np.int32),
-            draw_vertex_offset=np.zeros(dcap, np.int32),
-            draw_index_offset=np.zeros(dcap, np.int32),
-            draw_node_offset=np.zeros(dcap, np.int32),
-            draw_index_count=np.zeros(dcap, np.int32),
-            draw_count=np.asarray(len(self.meshes), np.int32))
+        out = _host_leaves(MeshBank.empty(vcap, icap, ncap, dcap, "cpu"))
+        out["draw_count"] = np.asarray(len(self.meshes), np.int32)
         if not self.meshes:
             return out, 1
 
@@ -387,6 +445,13 @@ def escape_links(node_left: np.ndarray, node_count: np.ndarray) -> np.ndarray:
             stack.append((left + 1, e))
             stack.append((left, left + 1))
     return esc
+
+
+def _host_leaves(table) -> dict[str, np.ndarray]:
+    """The tensor fields of a CPU table as writable NumPy arrays (views)."""
+    return {f.name: getattr(table, f.name).numpy()
+            for f in dataclasses.fields(table)
+            if isinstance(getattr(table, f.name), torch.Tensor)}
 
 
 def _round_up_pow2(n: int) -> int:
