@@ -218,23 +218,17 @@ def test_jax_renderer_checkpoint_resumes(stepped, tmp_path):
 
 
 def test_profiling_stages_and_timer(tmp_path):
-    """``Renderer.step`` runs inside a named stage that a ``profile_trace``
-    Chrome trace records; ``StepTimer`` keeps rolling frame stats."""
+    """``Renderer.step`` and ``output`` run inside named stages that a
+    ``profile_trace`` Chrome trace records."""
     from wc_path_tracer_tpu_torch.utils import profiling
     r = Renderer(builtin.default_scene(device="cpu"),
                  builtin.default_camera(device="cpu"),
                  RenderConfig(width=8, height=8, max_bounces=1),
                  device="cpu")
     path = str(tmp_path / "trace.json")
-    timer = profiling.StepTimer(window=2)
     with profiling.profile_trace(path, r.device):
         for _ in range(3):
-            with timer.frame():
-                r.step(1)
+            r.step(1)
         r.output()
     trace = open(path).read()
     assert '"render_step"' in trace and '"post"' in trace
-    st = timer.stats
-    assert st["frames"] == 2 and 0.0 < st["min_ms"] <= st["avg_ms"] <= \
-        st["max_ms"]
-    assert profiling.StepTimer().stats == {"frames": 0}

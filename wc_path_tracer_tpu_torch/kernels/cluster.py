@@ -37,6 +37,7 @@ import torch
 
 from wc_path_tracer_tpu_torch.kernels import build
 from wc_path_tracer_tpu_torch.ops import intersect as ix
+from wc_path_tracer_tpu_torch.utils import profiling
 
 KINF = ix.KINFINITY
 CLUSTER_TRIS = 128   # triangle slots per cluster
@@ -271,23 +272,29 @@ def cluster_sweep(origin, direction, t_init, tris, cmin, cmax,
         block_fn = default_fn
     R = origin.shape[0]
     pad = (-R) % ray_block
-    if pad:
-        # repeat ray 0: coherent with block 0, so it costs ~nothing
-        origin = torch.cat([origin, origin[:1].expand(pad, 3)])
-        direction = torch.cat([direction, direction[:1].expand(pad, 3)])
-        t_init = torch.cat([t_init, t_init[:1].expand(pad)])
     Rp = R + pad
     RB = Rp // ray_block
-    bt0, t_lim = _cull(origin, direction, t_init, cmin, cmax, RB, ray_block)
-    nact = torch.sum(bt0 < KINF, dim=1, dtype=torch.int32)
-    order = torch.argsort(bt0, dim=1, stable=True)      # active clusters first
-    bt0_sorted = torch.gather(bt0, 1, order)
-    zeros = torch.zeros((Rp, 1), dtype=origin.dtype, device=origin.device)
-    rays = torch.cat([origin, direction, t_init[:, None], t_lim[:, None]]
-                     + [zeros] * 8, dim=1).view(RB, ray_block, PAYLOAD_COLS)
-    prev = torch.cat([t_init[:, None]] + [zeros] * 10 + [zeros - 1.0]
-                     + [zeros] * 4, dim=1).view(RB, ray_block, PAYLOAD_COLS)
-    pay = block_fn(nact, order.to(torch.int32), bt0_sorted, rays, prev, *tbl)
+    with profiling.stage("sweep.cull"):
+        if pad:
+            # repeat ray 0: coherent with block 0, so it costs ~nothing
+            origin = torch.cat([origin, origin[:1].expand(pad, 3)])
+            direction = torch.cat([direction, direction[:1].expand(pad, 3)])
+            t_init = torch.cat([t_init, t_init[:1].expand(pad)])
+        bt0, t_lim = _cull(origin, direction, t_init, cmin, cmax, RB,
+                           ray_block)
+        nact = torch.sum(bt0 < KINF, dim=1, dtype=torch.int32)
+        order = torch.argsort(bt0, dim=1, stable=True)  # active first
+        bt0_sorted = torch.gather(bt0, 1, order)
+        zeros = torch.zeros((Rp, 1), dtype=origin.dtype, device=origin.device)
+        rays = torch.cat([origin, direction, t_init[:, None], t_lim[:, None]]
+                         + [zeros] * 8, dim=1).view(RB, ray_block,
+                                                    PAYLOAD_COLS)
+        prev = torch.cat([t_init[:, None]] + [zeros] * 10 + [zeros - 1.0]
+                         + [zeros] * 4, dim=1).view(RB, ray_block,
+                                                    PAYLOAD_COLS)
+    with profiling.stage("sweep.kernel"):
+        pay = block_fn(nact, order.to(torch.int32), bt0_sorted, rays, prev,
+                       *tbl)
     return pay.view(Rp, PAYLOAD_COLS)[:R]
 
 

@@ -43,6 +43,7 @@ from wc_path_tracer_tpu_torch.scene.camera import CameraMatrices, primary_ray_di
 from wc_path_tracer_tpu_torch.scene.types import (
     MATERIAL_DIELECTRIC, MATERIAL_GGX, MATERIAL_LAMBERTIAN, MATERIAL_METAL,
     Scene)
+from wc_path_tracer_tpu_torch.utils import profiling
 from wc_path_tracer_tpu_torch.utils.config import RenderConfig
 
 BIAS = float(np.float32(1e-5))    # constants.glsl bias
@@ -738,14 +739,27 @@ def _bounce_segment(scene: Scene, cfg: RenderConfig, intersect_fn,
     """One bounce segment of TraceRay (pathTracer.comp:241-284) over a lane
     batch: closest hit, emission/NEE/sky accumulation, BSDF scatter,
     Russian roulette.  The masked draws come in the JAX package's order, so
-    every lane's PCG stream matches the reference's per-thread stream."""
+    every lane's PCG stream matches the reference's per-thread stream.
+    The segment is the ``bounce`` span, its closest-hit query the
+    ``intersect`` span (utils/profiling.py), which counts the lanes handed
+    to the query and the live ones among them."""
+    with profiling.stage("bounce"):
+        return _bounce(scene, cfg, intersect_fn, s)
+
+
+def _bounce(scene: Scene, cfg: RenderConfig, intersect_fn,
+            s: PathState) -> PathState:
+    """``_bounce_segment``'s work."""
     o, d, trans, seed = s.o, s.d, s.trans, s.seed
+    profiling.count("intersect.lanes", o.shape[0])
+    profiling.count("intersect.alive", s.alive)
     # terminated lanes keep stale (o, d); a backend that can skip them
     # (the cluster sweep) declares ``accepts_alive`` and gets the mask
-    if getattr(intersect_fn, "accepts_alive", False):
-        rec = intersect_fn(scene, o, d, cfg, alive=s.alive)
-    else:
-        rec = intersect_fn(scene, o, d, cfg)
+    with profiling.stage("intersect"):
+        if getattr(intersect_fn, "accepts_alive", False):
+            rec = intersect_fn(scene, o, d, cfg, alive=s.alive)
+        else:
+            rec = intersect_fn(scene, o, d, cfg)
 
     # miss -> sky * throughput, path ends (pathTracer.comp:248-249)
     miss = s.alive & ~rec.hit

@@ -210,7 +210,7 @@ class Renderer:
         for _ in range(n):
             mats = camera_matrices(self.camera,
                                    self.cfg.width / self.cfg.height)
-            with stage("render_step", self.device):
+            with stage("render_step", str(self.frame_count)):
                 if self._render_step is None:
                     frame_fn = dispatch.get_render_frame(
                         self.renderer, self.scene, self.cfg)
@@ -233,7 +233,7 @@ class Renderer:
         name = tonemap if tonemap is not None else self.cfg.tonemap
         g = float(gamma if gamma is not None else self.cfg.gamma)
         c = self.cfg
-        with stage("post", self.device):
+        with stage("post"):
             out = _finalize(self.image, name, g, c.bloom, c.bloom_threshold,
                             c.bloom_knee, c.bloom_strength)
         return out.cpu().numpy()

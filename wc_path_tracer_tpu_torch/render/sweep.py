@@ -27,6 +27,7 @@ from wc_path_tracer_tpu_torch.kernels import cluster
 from wc_path_tracer_tpu_torch.ops import intersect as ix
 from wc_path_tracer_tpu_torch.render import golden
 from wc_path_tracer_tpu_torch.scene.types import Scene
+from wc_path_tracer_tpu_torch.utils import profiling
 from wc_path_tracer_tpu_torch.utils.config import RenderConfig
 
 KINF = ix.KINFINITY
@@ -146,14 +147,18 @@ def _sweep(origin, direction, t_init, tables, cfg: RenderConfig, block_fn,
     tris, cmin, cmax, mat_tbl, variant = _unpack_tables(tables)
     kw = dict(ray_block=cfg.ray_block or cluster.RAY_BLOCK, block_fn=block_fn,
               variant=variant, mat_tbl=mat_tbl)
-    perm = _permuter(origin, direction, cfg, cmin, cmax, active=active,
-                     scene=scene)
+    with profiling.stage("sweep.sort"):
+        perm = _permuter(origin, direction, cfg, cmin, cmax, active=active,
+                         scene=scene)
+        if perm is not None:
+            fwd, inv = perm
+            origin, direction, t_init = map(fwd, (origin, direction, t_init))
+    pay = cluster.cluster_sweep(origin, direction, t_init, tris, cmin, cmax,
+                                **kw)
     if perm is None:
-        return cluster.cluster_sweep(origin, direction, t_init, tris, cmin,
-                                     cmax, **kw)
-    fwd, inv = perm
-    return inv(cluster.cluster_sweep(fwd(origin), fwd(direction), fwd(t_init),
-                                     tris, cmin, cmax, **kw))
+        return pay
+    with profiling.stage("sweep.sort"):
+        return inv(pay)
 
 
 def intersect_scene_sweep(scene: Scene, origin, direction, cfg: RenderConfig,
@@ -184,16 +189,17 @@ def intersect_scene_sweep(scene: Scene, origin, direction, cfg: RenderConfig,
         t_tri = torch.where(alive, t_tri, t_s)
     tri_hit = pay[:, 11] >= 0.0
 
-    if vslabs is None:
-        vslabs = cluster.vertex_slabs(scene.mesh)
-    slot = pay[:, 11].to(torch.int64).clamp_min(0)
-    # attached; index_select's backward (index_add_) does not serialize
-    # the lanes that share a slot
-    coords = vslabs.reshape(9, -1).index_select(1, slot)     # (9, R)
-    return golden.resolve_hit(
-        origin, direction, cfg, t_s, sph_center, sph_radius, sph_material,
-        t_tri, tri_hit, coords[0:3].T, coords[3:6].T, coords[6:9].T,
-        pay[:, 10].to(torch.int32))
+    with profiling.stage("sweep.reshade"):
+        if vslabs is None:
+            vslabs = cluster.vertex_slabs(scene.mesh)
+        slot = pay[:, 11].to(torch.int64).clamp_min(0)
+        # attached; index_select's backward (index_add_) does not serialize
+        # the lanes that share a slot
+        coords = vslabs.reshape(9, -1).index_select(1, slot)     # (9, R)
+        return golden.resolve_hit(
+            origin, direction, cfg, t_s, sph_center, sph_radius,
+            sph_material, t_tri, tri_hit, coords[0:3].T, coords[3:6].T,
+            coords[6:9].T, pay[:, 10].to(torch.int32))
 
 
 @torch.no_grad()
@@ -265,8 +271,9 @@ def make_intersect_fn(scene: Scene, cfg: RenderConfig | None = None,
     render through the plain twin on the card.  The silhouette query sweeps
     Möller-Trumbore tables under either kernel, so under "mxu" it takes B1
     (``cluster_sweep_plain`` where ``block_fn`` is B2's twin)."""
-    tables = build_tables(scene.mesh, cfg)
-    vslabs = cluster.vertex_slabs(scene.mesh)
+    with profiling.stage("sweep.tables"):
+        tables = build_tables(scene.mesh, cfg)
+        vslabs = cluster.vertex_slabs(scene.mesh)
     edge_block_fn = block_fn
     if len(tables) == 4:
         edge_block_fn = {cluster.cluster_sweep_mxu_plain:

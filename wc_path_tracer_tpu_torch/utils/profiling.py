@@ -4,10 +4,14 @@ utils/profiling.py).
 The reference's tracing is Vulkan debug-utils labels surfacing in
 RenderDoc, plus a live FPS panel.  Here:
 
-- ``stage(name, device)``: a named scope that shows up in
-  ``torch.profiler`` traces (``record_function``) and, when the work runs
-  on a CUDA device, as an NVTX range;
-- ``StepTimer``: rolling frame-time stats for utils.metrics records;
+- ``stage(name, args)``: a named span at a layer boundary of the program.
+  While a profiler records (``torch.profiler.profile``, or
+  ``torch.autograd.profiler.emit_nvtx()`` for Nsight, which turns every
+  span into an NVTX range) it is a ``record_function`` range, on the
+  profiler's own clock beside the CUDA activity; otherwise it records
+  nothing.  ``SPANS`` names every span the program opens;
+- ``count(name, value)`` / ``counting()``: per-name totals of lanes and
+  other counts, kept only inside ``counting()`` (``COUNTERS`` names them);
 - ``profile_trace(path)``: a ``torch.profiler`` session written as a Chrome
   trace.
 """
@@ -15,56 +19,71 @@ RenderDoc, plus a live FPS panel.  Here:
 from __future__ import annotations
 
 import contextlib
-import time
+import contextvars
 
 import torch
 
+# (span, its parent in a served frame, None at the top).  The transport's
+# NEE shadow query and the silhouette query open the sweep's spans too,
+# under ``bounce`` and outside any span respectively.
+SPANS = (
+    ("render_step", None),       # Renderer.step: one frame, accumulated
+    ("post", None),              # Renderer.output: bloom .. uint8 on host
+    ("sweep.tables", "render_step"),  # the sweep's tables, once a frame
+    ("bounce", "render_step"),   # golden._bounce_segment: one segment
+    ("intersect", "bounce"),     # its closest-hit query, any backend
+    ("sweep.sort", "intersect"),     # the ray regrouping and its inverse
+    ("sweep.cull", "intersect"),     # padding, cull, cluster order, packing
+    ("sweep.kernel", "intersect"),   # the block sweep: B1, B2 or a twin
+    ("sweep.reshade", "intersect"),  # the winner's vertices, resolve_hit
+)
 
-@contextlib.contextmanager
-def stage(name: str, device=None):
-    """Named scope for a pipeline stage.  ``device``: where the stage's
-    tensors live; a CUDA device adds an NVTX range.
+# counted at each closest-hit query of golden._bounce_segment: the lanes
+# handed to it (the compacted width under ``compact``) and the live ones
+COUNTERS = ("intersect.lanes", "intersect.alive")
+
+_OFF = contextlib.nullcontext()
+_totals = contextvars.ContextVar("profiling_totals", default=None)
+
+
+def stage(name: str, args: str | None = None):
+    """Span ``name`` (one of ``SPANS``) around a block; ``args`` is recorded
+    with the range.  Costs one check of the profiler's state when nothing
+    records.
 
     Usage:
-        with profiling.stage("render", scene.device):
+        with profiling.stage("render_step", str(frame)):
             image = ...
     """
-    cuda = device is not None and torch.device(device).type == "cuda"
-    with torch.profiler.record_function(name):
-        if cuda:
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name, args)
 
 
-class StepTimer:
-    """Rolling frame-time stats: the headless analog of the reference's FPS
-    min/max/avg panel (src/editor.jai:322-353)."""
+def count(name: str, value) -> None:
+    """Add ``value`` to counter ``name`` inside ``counting()``: a Python
+    int, or a tensor whose elements are summed on its device (no host
+    sync).  Outside ``counting()`` it records nothing."""
+    totals = _totals.get()
+    if totals is None:
+        return
+    if isinstance(value, torch.Tensor):
+        value = value.sum()
+    totals[name] = totals.get(name, 0) + value
 
-    def __init__(self, window: int = 64):
-        self.window = window
-        self.times: list = []
 
-    @contextlib.contextmanager
-    def frame(self):
-        t0 = time.perf_counter()
-        yield
-        self.times.append(time.perf_counter() - t0)
-        if len(self.times) > self.window:
-            self.times.pop(0)
-
-    @property
-    def stats(self) -> dict:
-        if not self.times:
-            return dict(frames=0)
-        return dict(
-            frames=len(self.times),
-            last_ms=self.times[-1] * 1e3,
-            avg_ms=sum(self.times) / len(self.times) * 1e3,
-            min_ms=min(self.times) * 1e3,
-            max_ms=max(self.times) * 1e3,
-        )
+@contextlib.contextmanager
+def counting():
+    """Keep the counters of the block.  Yields a dict that, once the block
+    exits, holds ``{name: int}``: each total read once, at the exit."""
+    totals: dict = {}
+    out: dict = {}
+    token = _totals.set(totals)
+    try:
+        yield out
+    finally:
+        _totals.reset(token)
+    out.update({k: int(v) for k, v in totals.items()})
 
 
 @contextlib.contextmanager
