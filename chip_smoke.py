@@ -38,6 +38,12 @@ It also renders the 1024 x 1024 Cornell box through the brute-force path,
 ``Scene.empty()`` (which must be the gradient sky alone) at that size,
 and the plain "wavefront" BVH walks at 64 x 64, checks the images, and
 prints times beside the card's name and power limit.
+Its [shade] phase holds T1 (kernels/csrc/shade_segment.cu), the
+transport's shading, against ``golden._bounce`` on the lanes and hit
+record of every segment of a 1024 x 1024 Cornell frame (black sky) and a
+512 x 512 bunny frame (gradient sky, Russian roulette from bounce 1):
+every field of the next PathState bit for bit, both timed, T1 against its
+bytes bound.
 
 Its [train] phase drives the training path: the bench's fwd+bwd step
 (``parallel.render.scene_loss_grad`` with the bench loss, mean(img^2) over
@@ -127,7 +133,7 @@ import torch
 
 from wc_path_tracer_tpu_torch import RenderConfig, bench
 from wc_path_tracer_tpu_torch.io.image import read_png
-from wc_path_tracer_tpu_torch.kernels import build, cluster, traversal
+from wc_path_tracer_tpu_torch.kernels import build, cluster, shade, traversal
 from wc_path_tracer_tpu_torch.kernels.launches import (KERNELS, read_counts,
                                                        reset_counts)
 from wc_path_tracer_tpu_torch.models.builtin import (cornell_box_scene,
@@ -169,6 +175,13 @@ OPS_PER_PLANE_TEST = 46
 OPS_PER_SLAB = 22
 OPS_PER_POP = 3
 OPS_PER_INNER = 2 * OPS_PER_SLAB + 3   # the children's slabs + the choice
+# T1's bytes bound, per lane: it reads its state (o, d, total, trans, seed,
+# alive; the origin once where every lane shares the camera's) and writes
+# the next; a live lane reads its hit flag, a lane that hit the rest of its
+# record (t, p, normal, front, material).  The material table is read once
+# per launch.
+T1_STATE, T1_HIT_FLAG, T1_HIT_REST = 57, 1, 33
+T1_FIELDS = ("o", "d", "total", "trans", "seed", "alive")
 PLANE_T_RTOL = 5e-5          # B2 vs MT t: see mxu_phase
 # sweep layouts timed against each other: (CTAs per ray block, threads per
 # ray), for B1 and for B2
@@ -515,6 +528,101 @@ def mean_entry(per_query):
     return dict(ms=sum(r["ms"] for r in per_query) / n,
                 plain_ms=sum(r["plain_ms"] for r in per_query) / n,
                 bound_ms=ms_b, bound_by=max(set(by), key=by.count))
+
+
+def bits_differ(got, want):
+    """None where ``got`` equals ``want`` bit for bit (floats compared by
+    their bits), else how many elements differ."""
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    if got.shape == want.shape and torch.equal(got, want):
+        return None
+    return f"{int((got != want).sum())} of {got.numel()} differ"
+
+
+def shade_bytes(s, rec, materials):
+    """Bytes one T1 launch must move on the lanes of ``s`` and ``rec``."""
+    lanes = s.d.shape[0]
+    shared = 12 * (lanes - 1) if s.o.stride(0) == 0 else 0
+    return (2 * T1_STATE * lanes - shared
+            + T1_HIT_FLAG * int(s.alive.sum())
+            + T1_HIT_REST * int((s.alive & rec.hit).sum())
+            + nbytes(*materials))
+
+
+def shade_cell(smi, label, scene, mats, cfg):
+    """T1 against ``golden._bounce`` on the lanes and hit record of every
+    segment of one frame at full size: each field of the next PathState bit
+    for bit, both timed (CUDA events), T1 against its bytes bound -> one
+    record per segment."""
+    fn = dispatch.get_intersect_fn("auto", scene, cfg)
+    n = cfg.width * cfg.height
+    dirs = primary_ray_directions(mats, cfg.width, cfg.height).reshape(-1, 3)
+    seed = rng.pixel_seed(torch.arange(n, device=dirs.device), 0)
+    s = golden._initial_state(mats.position.expand(n, 3), dirs, seed)
+    materials = shade.pack_materials(scene.materials)
+    per_segment = []
+    for b in range(cfg.max_bounces + 1):
+        rec = golden._closest_hit(scene, cfg, fn, s)
+
+        def fused(s=s, rec=rec, b=b):
+            return shade.shade_segment_kernel(
+                s.o, s.d, s.total, s.trans, s.seed, s.alive, rec, materials,
+                sky_gradient=cfg.sky != "black",
+                rr=cfg.use_rr and b >= cfg.rr_start_bounce)
+
+        def plain(s=s, rec=rec):
+            return golden._bounce(scene, cfg, lambda *a, **k: rec, s)
+
+        got, want = fused(), plain()
+        torch.cuda.synchronize()
+        differ = {name: bits_differ(g, getattr(want, name))
+                  for name, g in zip(T1_FIELDS, got)}
+        differ = {k: v for k, v in differ.items() if v}
+        err = max(float((g.double() - getattr(want, k).double()).abs()
+                        .nan_to_num(0.0).max())
+                  for k, g in zip(T1_FIELDS, got) if g.is_floating_point())
+        ms = event_ms(fused, 20)
+        plain_ms = event_ms(plain, 3)
+        nb = shade_bytes(s, rec, materials)
+        bound_ms, bound_by = bound(0, nb)
+        per_segment.append(dict(
+            segment=b, lanes=n, alive=int(s.alive.sum()),
+            hit=int((s.alive & rec.hit).sum()), bitwise=not differ,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=nb,
+            bound_ms=bound_ms, bound_by=bound_by))
+        print(f"[shade] {label} segment {b}: {per_segment[-1]['alive']} of "
+              f"{n} lanes alive; T1 {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}, {nb / 1e6:.2f} MB), "
+              f"{100 * bound_ms / ms:.1f} % of it; differ {differ or 'none'}"
+              f", on {smi}", flush=True)
+        check(not differ, f"[shade] {label} segment {b}: T1 equals _bounce "
+              f"bit for bit in {', '.join(T1_FIELDS)}")
+        s = want
+    return per_segment
+
+
+def shade_phase(smi, cscene, cmats, ccfg, scene, mats, cfg):
+    """The [shade] phase: T1 against its plain twin on every segment of a
+    1024^2 Cornell frame under the black sky (brute force) and a 512^2
+    bunny frame under the gradient sky with Russian roulette from bounce 1
+    (the sweep and B1) -> T1's entry of the kernels line."""
+    with torch.no_grad():
+        box = shade_cell(smi, "cornell 1024^2", cscene, cmats,
+                         ccfg.replace(sky="black"))
+        bunny = shade_cell(smi, "bunny 512^2 rr", scene, mats,
+                           cfg.replace(use_rr=True, rr_start_bounce=1))
+    return dict(
+        name="shade_segment", route="cuda",
+        source="wc_path_tracer_tpu_torch/kernels/csrc/shade_segment.cu",
+        replaces=None,
+        max_abs_err=max(r["max_abs_err"] for r in box + bunny),
+        **mean_entry(box), library_ms=None,
+        ms_note="mean per launch over one 1024^2 Cornell frame's 5 segments "
+                "(black sky); replaces no TPU kernel: the JAX transport is "
+                "one jitted program",
+        per_segment=box, bunny=mean_entry(bunny), bunny_per_segment=bunny,
+        card=smi)
 
 
 def walk_layouts():
@@ -1284,7 +1392,7 @@ def vertex_steps(smi, lit, cam):
             trainable=("albedo", "vertices"), learning_rate=1e-3, steps=3,
             vary_seed=True, log_every=1), renderer="auto")
     counts = read_counts()
-    check(counts == {"B1": 30, "B2": 0, "B3": 0},
+    check(counts == {"B1": 30, "B2": 0, "B3": 0, "T1": 0},
           f"[inverse] 3 lit-bunny steps launched {counts} (B1: 10 per step)")
     moved = float((out.mesh.vertices - lit.mesh.vertices).abs().max())
     check(moved > 0.0 and all(math.isfinite(h["grad_norm"]) for h in hist),
@@ -1505,7 +1613,7 @@ def edge_vertex_steps(smi, lit, cam):
             trainable=("vertices",), learning_rate=1e-3, steps=3,
             vary_seed=False, log_every=1), renderer="auto")
     counts = read_counts()
-    check(counts == {"B1": 3 * EDGE_LIT_B1, "B2": 0, "B3": 0},
+    check(counts == {"B1": 3 * EDGE_LIT_B1, "B2": 0, "B3": 0, "T1": 0},
           f"[edge] 3 lit-bunny vertex steps launched {counts} (B1: "
           f"{EDGE_LIT_B1} per step)")
     losses = [h["loss"] for h in hist]
@@ -1633,10 +1741,10 @@ def compact_phase(smi, scene, mats):
           "[compact] the brute-force compacted full_bsdf frame equals the "
           "plain frame bit for bit")
     b1 = out["bunny 512^2 rr from bounce 1 (B1)"]
-    check(all(b1[k]["launches"] == {"B1": 15, "B2": 0, "B3": 0}
+    check(all(b1[k]["launches"] == {"B1": 15, "B2": 0, "B3": 0, "T1": 15}
               for k in ("off", "on")),
-          "[compact] 3 RR bunny frames launched B1 15 times with compaction "
-          "off and on")
+          "[compact] 3 RR bunny frames launched B1 and T1 15 times each with "
+          "compaction off and on")
     return out
 
 
@@ -1663,7 +1771,8 @@ def serve_phase(smi, scene, cam, cscene, ccam):
         _, s = sync_time(lambda: r.step(1))
         times.append(s * 1e3)
     counts = read_counts()
-    check(counts == {"B1": 5 * SERVE_FRAMES, "B2": 0, "B3": 0},
+    check(counts == {"B1": 5 * SERVE_FRAMES, "B2": 0, "B3": 0,
+                     "T1": 5 * SERVE_FRAMES},
           f"[serve] {SERVE_FRAMES} Renderer steps launched {counts} (B1 5 "
           "per frame)")
     check(r.frame_count == SERVE_FRAMES and torch.equal(r.image, want),
@@ -1731,9 +1840,10 @@ def serve_phase(smi, scene, cam, cscene, ccam):
     reset_counts()
     _, s = sync_time(lambda: rc.step(3))
     ccounts = read_counts()
-    check(ccounts == {"B1": 0, "B2": 0, "B3": 0} and rc.frame_count == 4,
-          "[serve] Cornell 1024^2 Renderer steps launch no kernel (brute "
-          "force)")
+    check(ccounts == {"B1": 0, "B2": 0, "B3": 0, "T1": 15}
+          and rc.frame_count == 4,
+          "[serve] Cornell 1024^2 Renderer steps launch no closest-hit "
+          "kernel (brute force) and T1 5 times a step")
     check(bool(torch.isfinite(rc.image).all())
           and 0.01 < float(rc.image.mean()) < 3,
           f"[serve] Cornell image finite, mean {float(rc.image.mean()):.4f}")
@@ -1783,8 +1893,10 @@ def cli_phase(smi, kind):
     Cornell box; ``info`` -> its JSON record."""
     bunny = ["--gltf", BUNNY_GLB, "--width", "512", "--height", "512",
              "--bloom"]
-    b1 = {"cluster_sweep": 5, "cluster_sweep_mxu": 0, "bvh_walk": 0}
-    b3 = {"cluster_sweep": 0, "cluster_sweep_mxu": 0, "bvh_walk": 5}
+    b1 = {"cluster_sweep": 5, "cluster_sweep_mxu": 0, "bvh_walk": 0,
+          "shade_segment": 5}
+    b3 = {"cluster_sweep": 0, "cluster_sweep_mxu": 0, "bvh_walk": 5,
+          "shade_segment": 5}
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         p = functools.partial(os.path.join, tmp)
@@ -2012,12 +2124,13 @@ def write_obj(path, v, idx):
 
 def scene_cli(smi, obj, tmp):
     """(c) ``render --obj`` of the large OBJ at 512^2, 4 bounces, through
-    "auto" (B1, 5 launches per frame) and "pallas" (B3, 5 per frame), each
-    in a subprocess -> {path: record}."""
+    "auto" (B1, 5 launches per frame) and "pallas" (B3, 5 per frame), T1 5
+    per frame in both, each in a subprocess -> {path: record}."""
     p = functools.partial(os.path.join, tmp)
     args = ["render", "--obj", obj, "--width", "512", "--height", "512",
             "--bounces", "4", "--frames", str(SCENE_FRAMES)]
-    zero = {"cluster_sweep": 0, "cluster_sweep_mxu": 0, "bvh_walk": 0}
+    zero = {"cluster_sweep": 0, "cluster_sweep_mxu": 0, "bvh_walk": 0,
+            "shade_segment": 5}
     out = {}
     for path, kernel in (("auto", "cluster_sweep"), ("pallas", "bvh_walk")):
         _, err, s = run_cli([*args, "--renderer", path, "--metrics",
@@ -2066,7 +2179,7 @@ def scene_frame(smi, scene, mats, cfg, path, tag):
             scene, mats, cfg, 0, None, frame_fn=frame_fn))
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check(counts == dict({"B1": 0, "B2": 0, "B3": 0}, **{tag: 5}),
+    check(counts == dict({"B1": 0, "B2": 0, "B3": 0, "T1": 5}, **{tag: 5}),
           f"[scene] one in-process '{path}' frame launched {counts}")
     check_image(image, f"[scene] in-process '{path}'")
     print(f"[scene] in-process '{path}' frame 0 (the first on this scene): "
@@ -2379,10 +2492,16 @@ def bench_run(smi, label, args):
     want = {"headline": kernel, "bvh_row": "cluster_sweep", "bsdf_row": None,
             "scaling_efficiency_8": None}
     want = {row: want[row] for row in ("headline",) + rows}
-    zero = {"cluster_sweep": 0, "cluster_sweep_mxu": 0, "bvh_walk": 0}
+    # T1 shades the forward-only headline's segments (no grad, NEE off)
+    a = bench.parse_args(args)[1]
+    fused = a.bounces + 1 if a.forward_only and not a.nee else 0
+    zero = {"cluster_sweep": 0, "cluster_sweep_mxu": 0, "bvh_walk": 0,
+            "shade_segment": 0}
     check(set(launches) == set(want) and all(
         launches[row]["per_step"] == dict(zero, **(
-            {k: 5} if k else {})) for row, k in want.items()),
+            {k: 5} if k else {}), **(
+            {"shade_segment": fused} if row == "headline" else {}))
+        for row, k in want.items()),
         f"[bench] {label}: kernel launches per step "
         + ", ".join(f"{row} {launches[row]['per_step']}" for row in launches))
     print(f"[bench] {label} ({' '.join(args) or 'no flags'}): {s:.1f} s; "
@@ -2735,6 +2854,9 @@ def main() -> int:
           f"peak {cpeak:.2f} GiB, on {smi}", flush=True)
     empty_sky(cmats, ccfg)
 
+    # -- 5b. T1, the transport's shading, against its plain twin -----------
+    t1 = shade_phase(smi, cscene, cmats, ccfg, scene, mats, cfg)
+
     # -- 6. the "pallas" path: the split bunny through the BVH walk ---------
     b3, split_scene = pallas_phase(
         smi, cfg, scene, [line.strip() for line in logs.get(
@@ -2811,21 +2933,24 @@ def main() -> int:
     cli = cli_phase(smi, kind)
     dp = dp_phase(smi)
     for entry, key, cli_key in ((b2, "B2", "cluster_sweep_mxu"),
-                                (b3, "B3", "bvh_walk")):
+                                (b3, "B3", "bvh_walk"),
+                                (t1, "T1", "shade_segment")):
         entry.update(slice_launches(serving, cli, dp, key, cli_key))
 
     # -- 13. the native host scene pipeline and the 327,680-triangle OBJ
     # through the CLI on B1 and B3 -----------------------------------------
     scene_rec = scene_phase(smi)
     for entry, key, cli_key in ((b2, "B2", "cluster_sweep_mxu"),
-                                (b3, "B3", "bvh_walk")):
+                                (b3, "B3", "bvh_walk"),
+                                (t1, "T1", "shade_segment")):
         entry.update(scene_entry(scene_rec, key, cli_key))
     b3["scene"] = scene_rec["B3"]
 
     # -- 14. the port's bench entry point (python -m
     # wc_path_tracer_tpu_torch.bench) in subprocesses ----------------------
     bench_rec = bench_phase(smi, scene, mats)
-    for entry, cli_key in ((b2, "cluster_sweep_mxu"), (b3, "bvh_walk")):
+    for entry, cli_key in ((b2, "cluster_sweep_mxu"), (b3, "bvh_walk"),
+                           (t1, "shade_segment")):
         entry["bench_launches"] = bench_launches(bench_rec, cli_key)
     w = b3["bench"] = bench_rec["B3"]
     b3.update(bench_ms=w["ms"], bench_plain_ms=w["plain_ms"],
@@ -2876,7 +3001,7 @@ def main() -> int:
         "scene": {k: v for k, v in scene_rec.items() if k != "B3"},
         "bench_launches": bench_launches(bench_rec, "cluster_sweep"),
         "bench": {k: v for k, v in bench_rec.items() if k != "B3"},
-    }, b2, b3]}))
+    }, b2, b3, t1]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

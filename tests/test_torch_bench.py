@@ -279,7 +279,8 @@ def test_json_line():
                 if line.startswith("bench: launches ")]
     assert [r["row"] for r in launches] == ["headline"]
     assert launches[0]["counts"] == {"cluster_sweep": 0,
-                                     "cluster_sweep_mxu": 0, "bvh_walk": 0}
+                                     "cluster_sweep_mxu": 0, "bvh_walk": 0,
+                                     "shade_segment": 0}
 
 
 def test_row_metric_strings(capsys, monkeypatch):

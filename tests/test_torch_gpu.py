@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from wc_path_tracer_tpu_torch import RenderConfig
-from wc_path_tracer_tpu_torch.kernels import cluster, traversal
+from wc_path_tracer_tpu_torch.kernels import cluster, shade, traversal
+from wc_path_tracer_tpu_torch.models import builtin
 from wc_path_tracer_tpu_torch.models.procedural import (bumpy_sphere,
                                                          bunny_gltf_scene,
                                                          bunny_like_scene,
@@ -26,9 +27,14 @@ from wc_path_tracer_tpu_torch.parallel import render as prender
 from wc_path_tracer_tpu_torch.render import golden, sweep, wavefront
 from wc_path_tracer_tpu_torch.scene.camera import (camera_matrices,
                                                    primary_ray_directions)
-from wc_path_tracer_tpu_torch.scene.types import (MATERIAL_LAMBERTIAN,
+from wc_path_tracer_tpu_torch.ops import rng
+from wc_path_tracer_tpu_torch.render.renderer import Renderer
+from wc_path_tracer_tpu_torch.scene.types import (MATERIAL_DIELECTRIC,
+                                                  MATERIAL_GGX,
+                                                  MATERIAL_LAMBERTIAN,
                                                   MATERIAL_METAL,
                                                   SceneBuilder)
+from wc_path_tracer_tpu_torch.utils import profiling
 
 
 def _need_card():
@@ -725,4 +731,155 @@ def test_bench_on_card():
                 for line in proc.stderr.splitlines()
                 if line.startswith("bench: launches ")]
     assert launches[0]["per_step"] == {"cluster_sweep": 5,
-                                       "cluster_sweep_mxu": 0, "bvh_walk": 0}
+                                       "cluster_sweep_mxu": 0, "bvh_walk": 0,
+                                       "shade_segment": 0}
+
+
+def _bits_differ(got, want):
+    """None where ``got`` equals ``want`` bit for bit (floats compared by
+    their bits), else how many elements differ and the first of them."""
+    if got.dtype == torch.float32:
+        g, w = got.view(torch.int32), want.view(torch.int32)
+    else:
+        g, w = got, want
+    if g.shape == w.shape and torch.equal(g, w):
+        return None
+    bad = (g != w).reshape(g.shape[0], -1).any(dim=1).nonzero()[:4, 0]
+    return (f"{int((g != w).sum())} differ; lanes {bad.tolist()}: "
+            f"{got[bad].tolist()} against {want[bad].tolist()}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sky", ["gradient", "black"])
+@pytest.mark.parametrize("use_rr", [False, True], ids=["rr-off", "rr-on"])
+def test_shade_kernel_matches_bounce(use_rr, sky):
+    """T1 against ``golden._bounce`` on the same lanes and hit records:
+    every field of the next PathState bit for bit, in each of the 6
+    segments of a 128^2 ``full_bsdf_scene`` frame (all four material
+    types), an eighth of the lanes dead from the start."""
+    _need_card()
+    scene, cam = builtin.full_bsdf_scene(device="cuda")
+    mats = camera_matrices(cam, 1.0)
+    n = 128
+    cfg = RenderConfig(width=n, height=n, max_bounces=5, use_rr=use_rr,
+                       rr_start_bounce=1, sky=sky)
+    dirs = primary_ray_directions(mats, n, n).reshape(-1, 3)
+    lane = torch.arange(n * n, device="cuda")
+    s = golden._initial_state(mats.position.expand(n * n, 3), dirs,
+                              rng.pixel_seed(lane, 7))
+    s.alive = lane % 8 != 5
+    materials = shade.pack_materials(scene.materials)
+    types = set()
+    with torch.no_grad():
+        for b in range(cfg.max_bounces + 1):
+            rec = golden.intersect_scene_brute(scene, s.o, s.d, cfg)
+            live = s.alive & rec.hit
+            types |= set(scene.materials.mtype[rec.material[live].long()]
+                         .tolist())
+            want = golden._bounce(scene, cfg, lambda *a, **k: rec, s)
+            before = shade.shade_segment_kernel.launches
+            got = shade.shade_segment_kernel(
+                s.o, s.d, s.total, s.trans, s.seed, s.alive, rec, materials,
+                sky_gradient=sky != "black",
+                rr=use_rr and b >= cfg.rr_start_bounce)
+            torch.cuda.synchronize()
+            assert shade.shade_segment_kernel.launches == before + 1
+            for name, g in zip(("o", "d", "total", "trans", "seed", "alive"),
+                               got):
+                assert _bits_differ(g, getattr(want, name)) is None, \
+                    (b, name, _bits_differ(g, getattr(want, name)))
+            s = want
+    assert types == {MATERIAL_METAL, MATERIAL_DIELECTRIC,
+                     MATERIAL_LAMBERTIAN, MATERIAL_GGX}
+    assert 0 < int(s.alive.sum()) < n * n
+
+
+@pytest.mark.gpu
+def test_shade_kernel_wrapper_rejects_bad_inputs():
+    """T1's wrapper raises on a wrong dtype, shape or device, and reads an
+    expanded origin in place and any other layout as a copy."""
+    _need_card()
+    scene, _ = builtin.cornell_box_scene(device="cuda")
+    n = 64
+    f3 = torch.rand(n, 3, device="cuda")
+    rec = golden.HitRecord(
+        t=torch.rand(n, device="cuda"), p=f3.clone(), normal=f3.clone(),
+        hit=torch.ones(n, dtype=torch.bool, device="cuda"),
+        front=torch.ones(n, dtype=torch.bool, device="cuda"),
+        material=torch.zeros(n, dtype=torch.int32, device="cuda"))
+    seed = torch.arange(n, device="cuda")
+    alive = torch.ones(n, dtype=torch.bool, device="cuda")
+    materials = shade.pack_materials(scene.materials)
+
+    def call(o=f3, d=f3, seed=seed, rec=rec):
+        return shade.shade_segment_kernel(o, d, f3, f3, seed, alive, rec,
+                                          materials, True, False)
+
+    long_material = dataclasses.replace(rec, material=rec.material.long())
+    for bad in (dict(seed=seed.int()), dict(d=f3[:, :2].contiguous()),
+                dict(o=f3.cpu()), dict(rec=long_material)):
+        with pytest.raises(ValueError):
+            call(**bad)
+    origin = torch.rand(3, device="cuda")
+    a = call(o=origin.expand(n, 3))
+    b = call(o=origin.expand(n, 3).contiguous())
+    c = call(o=torch.cat([origin.expand(n, 3)] * 2, 1)[:, 3:])
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, c):
+        assert _bits_differ(y, x) is None and _bits_differ(z, x) is None
+
+
+def _serving_scene(name):
+    """(scene, camera, sky) of the serving cells' scenes, on the card."""
+    if name == "cornell":
+        return builtin.cornell_box_scene(device="cuda") + ("black",)
+    return bunny_gltf_scene(device="cuda") + ("gradient",)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cornell", "bunny"])
+def test_renderer_frames_with_shade_kernel_equal_plain(name, monkeypatch):
+    """16 accumulated 64^2 ``Renderer`` frames (4 bounces, 1 spp) with T1
+    equal those of the plain segment (``shade.on_card`` patched to say
+    no) bit for bit: the Cornell box through brute force, the bunny
+    through the sweep and B1."""
+    _need_card()
+    scene, cam, sky = _serving_scene(name)
+    cfg = RenderConfig(width=64, height=64, max_bounces=4, sky=sky)
+
+    def frames():
+        r = Renderer(scene, cam, cfg)
+        r.step(16)
+        torch.cuda.synchronize()
+        return r.image
+
+    before = shade.shade_segment_kernel.launches
+    fused = frames()
+    assert shade.shade_segment_kernel.launches - before == 16 * 5
+    monkeypatch.setattr(shade, "on_card", lambda t: False)
+    plain = frames()
+    assert shade.shade_segment_kernel.launches - before == 16 * 5
+    assert float(plain.mean()) > 0.0
+    assert _bits_differ(fused, plain) is None, _bits_differ(fused, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samples, bounces", [(1, 4), (2, 2)])
+def test_shade_kernel_launches_per_frame(samples, bounces):
+    """T1 launches ``max_bounces + 1`` times per sample per frame, one
+    launch per closest-hit query over the lanes handed to it."""
+    _need_card()
+    scene, cam, sky = _serving_scene("cornell")
+    cfg = RenderConfig(width=32, height=32, samples=samples,
+                       max_bounces=bounces, sky=sky)
+    r = Renderer(scene, cam, cfg)
+    before = shade.shade_segment_kernel.launches
+    r.step(3)
+    assert shade.shade_segment_kernel.launches - before \
+        == 3 * samples * (bounces + 1)
+    with profiling.counting() as counts:
+        r.step(1)
+    assert shade.shade_segment_kernel.launches - before \
+        == 4 * samples * (bounces + 1)
+    assert counts["intersect.lanes"] \
+        == 32 * 32 * samples * (bounces + 1)

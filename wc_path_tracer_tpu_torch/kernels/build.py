@@ -64,6 +64,14 @@ SIGNATURES = {
         "wc_bvh_walk": ([_P] * 12 + [_I] * 6 + [_P], _I),
         "wc_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "shade_segment": {
+        # o, d, total, trans, seed, alive, the hit record's t, p, normal,
+        # hit, front, material, the material table and type ids, the six
+        # outputs (o, d, total, trans, seed, alive), lanes, o's row stride,
+        # gradient sky, Russian roulette, stream
+        "wc_shade_segment": ([_P] * 20 + [_I] * 4 + [_P], _I),
+        "wc_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

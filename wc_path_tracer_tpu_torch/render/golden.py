@@ -20,6 +20,11 @@ light per lane, picked by area x luminance, and under ``mis`` weights both
 strategies by the balance heuristic; its shadow query is the backend's
 ``occlusion_fn`` where it registers one, else its full closest hit.
 
+Where grad mode is off, NEE is off and the lanes lie on the card
+(``_fused_materials``), the shading after each segment's query is one
+launch of the hand-written kernel T1 (``kernels/shade.py``); ``_bounce``
+stays its plain twin, bit for bit, and runs everywhere else.
+
 ``edge_grads`` (the silhouette estimator, ``trace_rays_edge``) widens the
 primary query by half a pixel around sphere limbs and miter-expanded
 triangles, traces a hit path and a background path per ray and blends them
@@ -36,6 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from wc_path_tracer_tpu_torch.kernels import shade
 from wc_path_tracer_tpu_torch.ops import bsdf
 from wc_path_tracer_tpu_torch.ops import intersect as ix
 from wc_path_tracer_tpu_torch.ops import rng
@@ -734,32 +740,70 @@ class PathState:
     bounce: int = 0
 
 
+def _fused_materials(scene: Scene, cfg: RenderConfig, direction):
+    """The packed material table (``shade.pack_materials``) where the
+    segments of this trace are shaded by the fused kernel T1, else None:
+    ``_bounce`` shades them.
+
+    T1 takes the lanes where grad mode is off, NEE is off and they lie on
+    the card.  Training, NEE/MIS, the edge estimator (``trace_rays_edge``),
+    any caller under grad mode and the CPU keep ``_bounce``.  Packed once
+    per trace, so once a frame per sample."""
+    if torch.is_grad_enabled() or cfg.use_nee \
+            or not shade.on_card(direction):
+        return None
+    return shade.pack_materials(scene.materials)
+
+
 def _bounce_segment(scene: Scene, cfg: RenderConfig, intersect_fn,
-                    s: PathState) -> PathState:
+                    s: PathState, materials=None) -> PathState:
     """One bounce segment of TraceRay (pathTracer.comp:241-284) over a lane
     batch: closest hit, emission/NEE/sky accumulation, BSDF scatter,
     Russian roulette.  The masked draws come in the JAX package's order, so
     every lane's PCG stream matches the reference's per-thread stream.
     The segment is the ``bounce`` span, its closest-hit query the
     ``intersect`` span (utils/profiling.py), which counts the lanes handed
-    to the query and the live ones among them."""
+    to the query and the live ones among them.  With ``materials``
+    (``_fused_materials``'s table) the shading is one launch of T1."""
     with profiling.stage("bounce"):
-        return _bounce(scene, cfg, intersect_fn, s)
+        if materials is None:
+            return _bounce(scene, cfg, intersect_fn, s)
+        return _bounce_fused(scene, cfg, intersect_fn, s, materials)
 
 
-def _bounce(scene: Scene, cfg: RenderConfig, intersect_fn,
-            s: PathState) -> PathState:
-    """``_bounce_segment``'s work."""
-    o, d, trans, seed = s.o, s.d, s.trans, s.seed
-    profiling.count("intersect.lanes", o.shape[0])
+def _closest_hit(scene: Scene, cfg: RenderConfig, intersect_fn,
+                 s: PathState) -> HitRecord:
+    """The segment's closest-hit query (the ``intersect`` span) and its lane
+    counters."""
+    profiling.count("intersect.lanes", s.o.shape[0])
     profiling.count("intersect.alive", s.alive)
     # terminated lanes keep stale (o, d); a backend that can skip them
     # (the cluster sweep) declares ``accepts_alive`` and gets the mask
     with profiling.stage("intersect"):
         if getattr(intersect_fn, "accepts_alive", False):
-            rec = intersect_fn(scene, o, d, cfg, alive=s.alive)
-        else:
-            rec = intersect_fn(scene, o, d, cfg)
+            return intersect_fn(scene, s.o, s.d, cfg, alive=s.alive)
+        return intersect_fn(scene, s.o, s.d, cfg)
+
+
+def _bounce_fused(scene: Scene, cfg: RenderConfig, intersect_fn,
+                  s: PathState, materials) -> PathState:
+    """``_bounce`` with everything after the query in one launch of T1.
+    NEE is off, so ``pdf_prev`` stays as it is."""
+    rec = _closest_hit(scene, cfg, intersect_fn, s)
+    o, d, total, trans, seed, alive = shade.shade_segment_kernel(
+        s.o, s.d, s.total, s.trans, s.seed, s.alive, rec, materials,
+        sky_gradient=cfg.sky != "black",
+        rr=cfg.use_rr and s.bounce >= cfg.rr_start_bounce)
+    return PathState(o=o, d=d, total=total, trans=trans, seed=seed,
+                     alive=alive, pdf_prev=s.pdf_prev, bounce=s.bounce + 1)
+
+
+def _bounce(scene: Scene, cfg: RenderConfig, intersect_fn,
+            s: PathState) -> PathState:
+    """``_bounce_segment``'s work on the plain path, op by op (T1's
+    twin)."""
+    o, d, trans, seed = s.o, s.d, s.trans, s.seed
+    rec = _closest_hit(scene, cfg, intersect_fn, s)
 
     # miss -> sky * throughput, path ends (pathTracer.comp:248-249)
     miss = s.alive & ~rec.hit
@@ -926,8 +970,9 @@ def trace_rays(scene: Scene, origin, direction, seed, cfg: RenderConfig,
         return trace_rays_compact(scene, origin, direction, seed, cfg,
                                   intersect_fn)
     s = _initial_state(origin, direction, seed)
+    materials = _fused_materials(scene, cfg, direction)
     for _ in range(cfg.max_bounces + 1):
-        s = _bounce_segment(scene, cfg, intersect_fn, s)
+        s = _bounce_segment(scene, cfg, intersect_fn, s, materials)
     return s.total, s.seed
 
 
@@ -963,8 +1008,9 @@ def trace_rays_compact(scene: Scene, origin, direction, seed,
     B = R // nblk
     n_dense = min(max(cfg.compact_from_resolved, 0), cfg.max_bounces + 1)
     s = _initial_state(origin, direction, seed)
+    materials = _fused_materials(scene, cfg, direction)
     for _ in range(n_dense):
-        s = _bounce_segment(scene, cfg, intersect_fn, s)
+        s = _bounce_segment(scene, cfg, intersect_fn, s, materials)
     lanes = _lanes(s)
     orig = torch.arange(R, device=direction.device)   # lane -> ray
     done = []             # (total, seed, ray) of the lanes out of play
@@ -985,7 +1031,8 @@ def trace_rays_compact(scene: Scene, origin, direction, seed,
         if n == 0:
             break
         lanes = _lanes(_bounce_segment(scene, cfg, intersect_fn,
-                                       PathState(**lanes, bounce=bounce)))
+                                       PathState(**lanes, bounce=bounce),
+                                       materials))
     total = torch.cat([lanes["total"]] + [d[0] for d in done])
     seed = torch.cat([lanes["seed"]] + [d[1] for d in done])
     orig = torch.cat([orig] + [d[2] for d in done])
@@ -1135,10 +1182,11 @@ def alive_per_bounce(scene: Scene, mats: CameraMatrices, cfg: RenderConfig,
     seed = rng.pixel_seed(torch.arange(H * W, device=dev), frame_count)
     dirs = primary_ray_directions(mats, W, H).reshape(-1, 3)
     s = _initial_state(mats.position.expand(H * W, 3), dirs, seed)
+    materials = _fused_materials(scene, cfg, dirs)
     counts = []
     for _ in range(cfg.max_bounces + 1):
         counts.append(s.alive.sum())
-        s = _bounce_segment(scene, cfg, intersect_fn, s)
+        s = _bounce_segment(scene, cfg, intersect_fn, s, materials)
     return torch.stack(counts)
 
 
