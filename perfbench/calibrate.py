@@ -8,8 +8,9 @@ PERF.md the readings).
 
 In one process: the program's numbers on each seed (a short window of
 the cell's own loop and its check: the lower reading is their largest);
-the control's on each control seed, which is the reference computed in
-bfloat16 put in the program's place (its smallest is the upper reading);
+the control's on each control seed, which is the configuration's
+reference computed in bfloat16 put in the program's place (its smallest is
+the upper reading);
 and each fault of perfbench/faults.py planted under the program.  One
 JSON line per reading.  The benchmark's runs never run this.
 """
@@ -24,7 +25,6 @@ import torch
 
 from perfbench import check, harness
 from perfbench.loops import serve as serve_loop
-from perfbench.reference import transport as reference
 
 MASK32 = 0xFFFFFFFF
 
@@ -44,6 +44,7 @@ def control_reading(name, seed, device, overrides=None, bench=None) -> dict:
     ctx = harness.make_ctx(name, seed, 0, False, device, 0.0,
                            overrides=overrides, bench=bench)
     r, tr = ctx.render, ctx.traffic
+    reference = ctx.reference
     ref = reference.prepare(ctx.raw, device)
     low = reference.prepare(ctx.raw, device, torch.bfloat16)
     numbers = []
@@ -62,10 +63,10 @@ def control_reading(name, seed, device, overrides=None, bench=None) -> dict:
             albedo, _ = edits(0)
             _, camera = edits(tr["orbit_frames"])
             for count in (1, tr["cycle"] - tr["orbit_frames"]):
-                hdr, u8 = serve_loop.replay(ref, r, post, mi, albedo, camera,
-                                            count)
-                c_hdr, c_u8 = serve_loop.replay(low, r, post, mi, albedo,
-                                                camera, count)
+                hdr, u8 = serve_loop.replay(reference, ref, r, post, mi,
+                                            albedo, camera, count)
+                c_hdr, c_u8 = serve_loop.replay(reference, low, r, post, mi,
+                                                albedo, camera, count)
                 numbers.append(check.serve_numbers(c_hdr.float(), c_u8.cpu(),
                                                    hdr, u8))
     return {k: max(n[k] for n in numbers) for k in numbers[0]}

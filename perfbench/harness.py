@@ -6,8 +6,12 @@ By name: a cell's configuration is the file its ``configs`` entry names,
 whose ``scene.loader`` is a module of perfbench/scenes; its traffic mix is
 perfbench/traffic/<traffic>.json, whose ``kind`` is a module of
 perfbench/loops; its limits are perfbench/limits/<cell>.json; each
-per-layer metric is read by perfbench/metrics/<metric>.py.  Adding a
-configuration, a mix, a cell or a metric adds files and entries only.
+per-layer metric is read by perfbench/metrics/<metric>.py; and the plain
+reference that decides ``correct`` is the module of perfbench/reference
+that the configuration's ``reference`` names (``transport`` where it names
+none), which is asked, before the program is built, whether it covers the
+configuration.  Adding a configuration, a mix, a cell, a metric or a
+reference adds files and entries only.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ class Ctx:
     traffic: dict
     limits: dict
     raw: dict
+    reference: object       # the configuration's perfbench/reference module
     seed: int
     seconds: float
     trace: bool
@@ -136,6 +141,26 @@ def load_scene(config: dict, root: Path = ROOT) -> dict:
     return loader.load(config["scene"], str(root))
 
 
+def reference_module(config: dict, file: str):
+    """The module of perfbench/reference that ``config`` (read from
+    ``file``) names, ``transport`` where it names none.  A module that is
+    not there, or is no reference (it has no ``covers``, as ``post`` has
+    not), is refused with its name and the configuration's file."""
+    name = config.get("reference", "transport")
+    module = f"perfbench.reference.{name}"
+    try:
+        mod = importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        mod = None
+    if not callable(getattr(mod, "covers", None)):
+        raise SystemExit(f"perfbench: {file} names the reference {name!r}, "
+                         f"but {module} is no reference module (none, or "
+                         f"one without covers)")
+    return mod
+
+
 def loop_module(traffic: dict):
     return importlib.import_module(f"perfbench.loops.{traffic['kind']}")
 
@@ -182,7 +207,8 @@ def make_ctx(name: str, seed: int, seconds: float, trace: bool, device,
              overrides: dict | None = None, bench: dict | None = None) -> Ctx:
     """A run's context; ``overrides`` replaces render fields, traffic
     entries and limits (the CPU tests' small sizes), ``bench`` the
-    contents of BENCHMARK.json."""
+    contents of BENCHMARK.json.  A configuration that its reference does
+    not cover is refused here, before anything of the program runs."""
     bench = bench or spec()
     cell, config, traffic, limits = cell_parts(bench, name)
     overrides = overrides or {}
@@ -192,8 +218,15 @@ def make_ctx(name: str, seed: int, seconds: float, trace: bool, device,
     config = dict(config, render={**config["render"],
                                   **overrides.get("render", {})})
     traffic = {**traffic, **overrides.get("traffic", {})}
+    file = {c["name"]: c for c in bench["configs"]}[cell["config"]]["file"]
+    reference = reference_module(config, file)
+    raw = load_scene(config)
+    why = reference.covers(raw, config["render"])
+    if why is not None:
+        raise SystemExit(f"perfbench: {file} lies outside its reference "
+                         f"{reference.__name__}: {why}")
     return Ctx(name=name, cell=cell, config=config, traffic=traffic,
-               limits=limits, raw=load_scene(config), seed=seed,
+               limits=limits, raw=raw, reference=reference, seed=seed,
                seconds=seconds, trace=trace, device=device, started=started,
                rank=rank, init_method=init_method, fault=fault,
                overrides=overrides, bench=bench)

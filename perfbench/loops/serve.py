@@ -15,8 +15,9 @@ Set-up builds the Renderer, serves ``warmup_frames`` frames after an edit
 and a camera step, and puts material and camera back.  After the window,
 a sample of its frames drawn from the seed (perfbench.loops.serve.kept_frames
 says which may be drawn), one of the most accumulated among them, is
-rendered again by the reference from the same edits and compared: the
-accumulated HDR image and the uint8 output.
+rendered again by the configuration's reference (``ctx.reference``) from
+the same edits and compared: the accumulated HDR image and the uint8
+output.
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ import torch
 
 from perfbench import check, harness, program, trace
 from perfbench.reference import post as ref_post
-from perfbench.reference import transport as reference
 
 
 def kept_frames(tr: dict, seed: int):
@@ -198,20 +198,23 @@ def run(ctx):
         out.breakdown = {"device_ops": trace.device_ops_top(stretch),
                          "idle_gaps": gaps}
     t_ref = time.perf_counter()
+    reference = ctx.reference
     base = reference.prepare(ctx.raw, dev)
     with reference.exact_matmuls():
         for hdr, u8, albedo, camera, count in checked:
-            ref_hdr, ref_u8 = replay(base, r, post, mi, albedo, camera, count)
+            ref_hdr, ref_u8 = replay(reference, base, r, post, mi, albedo,
+                                     camera, count)
             out.samples.append(check.serve_numbers(hdr, u8, ref_hdr, ref_u8))
     print(f"perfbench: reference of {sum(c[4] for c in checked)} frames in "
           f"{time.perf_counter() - t_ref:.1f} s", file=sys.stderr)
     return out
 
 
-def replay(base, render: dict, post: dict, mi: int, albedo, camera,
-           count: int):
-    """The reference's accumulated HDR image and uint8 output after
-    ``count`` frames since the last reset, at that material and camera."""
+def replay(reference, base, render: dict, post: dict, mi: int, albedo,
+           camera, count: int):
+    """The accumulated HDR image and uint8 output of the module
+    ``reference`` (of perfbench/reference) after ``count`` frames since the
+    last reset, at that material and camera, from its scene ``base``."""
     sc = reference.with_camera(reference.with_material(base, mi,
                                                        albedo=albedo),
                                **camera)

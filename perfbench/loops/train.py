@@ -27,7 +27,6 @@ import time
 import torch
 
 from perfbench import check, harness, program, trace
-from perfbench.reference import transport as reference
 
 MASK32 = 0xFFFFFFFF
 
@@ -193,6 +192,7 @@ def _run(ctx, group):
                          "idle_gaps": gaps}
 
     sizes = [int(torch.Size(s).numel()) for s in shapes]
+    reference = ctx.reference
     sc = reference.prepare(ctx.raw, dev)
     with reference.exact_matmuls():
         for i in harness.sample(ctx.seed, n, tr["check_steps"]):

@@ -5,8 +5,11 @@ before a function here runs."""
 
 from __future__ import annotations
 
+# every field of SceneBuilder.add_material; one a raw material leaves out
+# takes the builder's default
 _MATERIAL_KEYS = ("mtype", "albedo", "emission", "emission_strength",
-                  "metallic", "roughness")
+                  "metallic", "roughness", "absorption",
+                  "absorption_strength", "ior")
 
 
 def build_scene(raw: dict, device):

@@ -128,6 +128,19 @@ def _groups(centroids: np.ndarray, ids: np.ndarray) -> list:
     return _groups(centroids, order[:half]) + _groups(centroids, order[half:])
 
 
+def covers(raw: dict, render: dict) -> str | None:
+    """Why ``prepare`` or ``render_rows`` would refuse this raw scene and
+    render dictionary, or None."""
+    types = {m["mtype"] for m in raw["materials"]}
+    if not types <= {METAL, LAMBERTIAN}:
+        return (f"the reference covers metal and Lambertian materials, not "
+                f"{types}")
+    if render.get("use_nee") or render.get("use_rr") \
+            or render.get("pixel_jitter"):
+        return "the reference has NEE, RR and jitter off"
+    return None
+
+
 def prepare(raw: dict, device, dtype=torch.float32) -> Scene:
     """The reference's tensors of a raw scene (perfbench.scenes)."""
     dev = torch.device(device)

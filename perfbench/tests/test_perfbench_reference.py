@@ -3,6 +3,8 @@ CPU at 16-32 pixels square, through the cells' own loops and checks: the
 bench loss and its grads on both configurations, the accumulated HDR
 frame and the post-processed uint8 frame of the serving mix."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -66,6 +68,57 @@ def test_the_reference_builds_nothing_of_the_program():
     assert torch.equal(sc.a, torch.from_numpy(v[idx[:, 0]]))
     ids = torch.cat([g[0] for g in sc.groups]).sort().values
     assert torch.equal(ids, torch.arange(len(idx)))
+
+
+GLASS = {"mtype": 1, "albedo": [1.0, 1.0, 1.0], "ior": 1.5,
+         "absorption": [0.1, 0.02, 0.02], "absorption_strength": 0.02}
+
+
+def test_every_material_field_reaches_the_program():
+    raw = harness.make_ctx("cornell-serve", 1, 0, False, torch.device("cpu"),
+                           0.0).raw
+    raw = dict(raw, materials=raw["materials"] + [GLASS])
+    mats = program.build_scene(raw, "cpu")[0].materials
+    i = len(raw["materials"]) - 1
+    assert int(mats.count) == i + 1
+    for k, v in GLASS.items():
+        col = getattr(mats, k)
+        assert torch.equal(col[i], torch.tensor(v, dtype=col.dtype)), k
+
+
+def _leaves(obj, prefix=""):
+    if dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _leaves(getattr(obj, f.name), f"{prefix}.{f.name}")
+    else:
+        yield prefix, obj
+
+
+@pytest.mark.parametrize("cell", ["cornell-serve", "bunny-serve"])
+def test_todays_scenes_build_as_before(cell):
+    """The raw scenes of the benchmark's configurations give the Scene that
+    the six fields passed before gave, tensor for tensor: what they leave
+    out takes the builder's defaults."""
+    from wc_path_tracer_tpu_torch.scene.types import SceneBuilder
+
+    raw = harness.make_ctx(cell, 1, 0, False, torch.device("cpu"), 0.0).raw
+    b = SceneBuilder()
+    for m in raw["materials"]:
+        b.add_material(**{k: m[k] for k in (
+            "mtype", "albedo", "emission", "emission_strength", "metallic",
+            "roughness") if k in m})
+    for sph in raw["spheres"]:
+        b.add_sphere(tuple(sph["position"]), sph["radius"], sph["material"])
+    b.add_mesh(raw["vertices"], raw["indices"], normals=raw["normals"],
+               tri_material=raw["tri_material"])
+    before = dict(_leaves(b.build("cpu")))
+    after = dict(_leaves(program.build_scene(raw, "cpu")[0]))
+    assert before.keys() == after.keys()
+    for k, v in before.items():
+        if isinstance(v, torch.Tensor):
+            assert v.dtype == after[k].dtype and torch.equal(v, after[k]), k
+        else:
+            assert v == after[k], k
 
 
 def test_check_numbers():
