@@ -168,9 +168,10 @@ def test_packed_material_table(make):
 
 @pytest.mark.parametrize("compact", [False, True], ids=["plain", "compact"])
 def test_query_counters_equal_the_plain_paths(compact, monkeypatch):
-    """Where T1 shades, the closest-hit queries are counted as on the plain
-    path: ``intersect.lanes`` and ``intersect.alive`` are the same, and T1
-    took one call per query."""
+    """Where T1 shades, the closest-hit queries (and the compaction's
+    partitions) are counted as on the plain path: ``intersect.lanes`` and
+    ``intersect.alive`` are the same, and T1 took one call per query, of
+    the lanes ``shade.lanes`` counts, which the plain path never counts."""
     scene, cam = _cornell()
     mats = camera_matrices(cam, 1.0)
     cfg = CFG.replace(compact=compact, compact_blocks=8)
@@ -181,8 +182,12 @@ def test_query_counters_equal_the_plain_paths(compact, monkeypatch):
     monkeypatch.setattr(shade, "on_card", lambda t: True)
     with torch.no_grad(), profiling.counting() as fused:
         golden.render_frame(scene, mats, cfg, FRAME)
-    assert fused == plain and set(fused) == set(profiling.COUNTERS)
-    assert sum(c["lanes"] for c in stub.calls) == fused["intersect.lanes"]
+    shaded = fused.pop("shade.lanes")
+    assert fused == plain
+    assert set(plain) == {"intersect.lanes", "intersect.alive"} | (
+        {"compact.alive", "compact.kept"} if compact else set())
+    assert sum(c["lanes"] for c in stub.calls) == shaded \
+        == fused["intersect.lanes"]
 
 
 def _c_parameters(src, fn):

@@ -6,8 +6,9 @@ costs nothing else; a served frame opens exactly the spans of
 to each closest-hit query and the live ones among them, inside
 ``counting()`` only; and neither changes a pixel.  16 x 16, 2 bounces,
 1 spp: a 320-triangle mesh (above dispatch "auto"'s crossover, so the
-cluster sweep answers through its plain twin) and the 32-triangle Cornell
-box (brute force).
+cluster sweep answers through its plain twin), the 32-triangle Cornell
+box (brute force) and the full-BSDF box under alive-lane compaction
+(brute force; its partitions are the ``compact`` span and counters).
 """
 
 import re
@@ -29,13 +30,19 @@ PACKAGE = Path(__file__).resolve().parent.parent / "wc_path_tracer_tpu_torch"
 CFG = RenderConfig(width=16, height=16, samples=1, max_bounces=2,
                    use_rr=True, rr_start_bounce=1)
 SCENES = {"sweep": lambda: bunny_like_scene(2, device="cpu"),
-          "brute": lambda: builtin.cornell_box_scene(device="cpu")}
+          "brute": lambda: builtin.cornell_box_scene(device="cpu"),
+          "compact": lambda: builtin.full_bsdf_scene(device="cpu")}
+# the full-BSDF box compacts from bounce rr_start_bounce + 1, in blocks of
+# 256 / 8 lanes
+COMPACT = dict(compact=True, compact_blocks=8, sky="black")
 PARENT = dict(profiling.SPANS)
 SWEEP_SPANS = {n for n in PARENT if n.startswith("sweep.")}
 
 
 def renderer(kind, **kw):
     scene, cam = SCENES[kind]()
+    if kind == "compact":
+        kw = {**COMPACT, **kw}
     return Renderer(scene, cam, CFG.replace(**kw), device="cpu")
 
 
@@ -76,12 +83,13 @@ def test_stage_records_nothing_with_the_profiler_off(monkeypatch):
     assert counts == {}
 
 
-@pytest.mark.parametrize("kind", ["sweep", "brute"])
+@pytest.mark.parametrize("kind", ["sweep", "brute", "compact"])
 def test_frame_opens_the_spans_nested(kind):
     """Under torch.profiler a served frame opens the ``SPANS`` names and no
     other, each inside its parent: ``bounce`` and ``intersect`` once a
     segment, the sweep's spans once a query on the mesh and never on the
-    box."""
+    boxes, ``compact`` once a compacted bounce and once for the restore,
+    and only under compaction."""
     r = renderer(kind)
     served_frame(r)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -93,14 +101,19 @@ def test_frame_opens_the_spans_nested(kind):
     assert names.count("render_step") == names.count("post") == 1
     assert names.count("bounce") == names.count("intersect") == segments
     if kind == "sweep":
-        assert set(names) == set(PARENT)
+        assert set(names) == set(PARENT) - {"compact"}
         assert names.count("sweep.tables") == 1
         for span in ("sweep.cull", "sweep.kernel", "sweep.reshade"):
             assert names.count(span) == segments, span
         # the dynamic sort: the regrouping, then its inverse
         assert names.count("sweep.sort") == 2 * segments
+    elif kind == "brute":
+        assert set(names) == set(PARENT) - SWEEP_SPANS - {"compact"}
     else:
         assert set(names) == set(PARENT) - SWEEP_SPANS
+        compacted = segments - r.cfg.compact_from_resolved
+        assert compacted > 0
+        assert names.count("compact") == compacted + 1
 
 
 def test_every_stage_in_the_package_is_a_listed_span():
@@ -127,7 +140,8 @@ def test_counters_count_queried_and_live_lanes(compact):
     with profiling.counting() as counts:
         golden.render_frame(scene, mats, cfg, 3, fn)
     lanes = CFG.width * CFG.height * CFG.samples * (CFG.max_bounces + 1)
-    assert set(counts) == set(profiling.COUNTERS)
+    assert set(counts) == {"intersect.lanes", "intersect.alive"} | (
+        {"compact.alive", "compact.kept"} if compact else set())
     assert all(type(v) is int for v in counts.values())
     assert counts["intersect.alive"] == alive < lanes
     if compact:
@@ -136,7 +150,50 @@ def test_counters_count_queried_and_live_lanes(compact):
         assert counts["intersect.lanes"] == lanes
 
 
-@pytest.mark.parametrize("kind", ["sweep", "brute"])
+def _compaction_counts(device):
+    """(counters of one compacted full-BSDF frame at 16 x 16, 5 segments,
+    the plain path's live lanes entering each bounce, lanes a block, first
+    compacted bounce)."""
+    scene, cam = builtin.full_bsdf_scene(device=device)
+    mats = camera_matrices(cam, 1.0)
+    cfg = CFG.replace(max_bounces=4, **COMPACT)
+    with torch.no_grad():
+        alive = golden.alive_per_bounce(scene, mats, cfg, 3).tolist()
+        with profiling.counting() as counts:
+            golden.render_frame(scene, mats, cfg, 3)
+    return counts, alive, cfg.num_rays // cfg.compact_blocks, \
+        cfg.compact_from_resolved
+
+
+def test_compaction_counts_live_and_kept_lanes():
+    """On the full-BSDF box, ``compact.alive`` is the live lanes entering
+    the compacted bounces (``golden.alive_per_bounce``), ``compact.kept``
+    each bounce's live lanes rounded up to the block, and on the CPU no
+    lane goes to the fused shading kernel."""
+    counts, alive, block, first = _compaction_counts("cpu")
+    later = alive[first:]
+    assert 0 < later[0] < CFG.width * CFG.height
+    assert counts["compact.alive"] == sum(later)
+    assert counts["compact.kept"] == sum(-(-a // block) * block
+                                         for a in later)
+    assert counts["compact.alive"] < counts["compact.kept"]
+    assert "shade.lanes" not in counts
+
+
+@pytest.mark.gpu
+def test_compaction_and_shade_counters_on_the_card():
+    """Where T1 shades, every lane handed to a query is handed to T1, and
+    the compaction's counts are the plain path's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    counts, alive, block, first = _compaction_counts("cuda")
+    assert counts["shade.lanes"] == counts["intersect.lanes"]
+    assert counts["compact.alive"] == sum(alive[first:])
+    assert counts["compact.kept"] == sum(-(-a // block) * block
+                                         for a in alive[first:])
+
+
+@pytest.mark.parametrize("kind", ["sweep", "brute", "compact"])
 def test_tracing_leaves_the_image_bit_for_bit(kind):
     """A frame rendered under the profiler and inside ``counting()`` is the
     frame rendered with both off."""
@@ -169,3 +226,18 @@ def test_span_probe_charges_device_time_and_gaps_to_spans():
     assert probe.idle_ms(ops, host) == pytest.approx(
         {"intersect": 50 * ms, "bounce": 800 * ms})
     assert probe.idle_ms([], host) == {}
+
+
+def test_span_probe_rehearses_the_full_bsdf_cell():
+    """tools/torch_span_probe.py on the CPU (16 x 16) for ``bsdf-serve``:
+    the compaction's counters and padding share, and the live lanes of
+    each of the cell's 9 segments; no device numbers on a CPU."""
+    from tools import torch_span_probe as probe
+
+    r = probe.serve_cell("bsdf-serve", torch.device("cpu"), 16)
+    c = r["counters"]
+    assert c["compact.kept"] > c["compact.alive"] > 0
+    assert r["padding_share"] == 1.0 - c["compact.alive"] / c["compact.kept"]
+    assert len(r["alive_per_bounce"]) == 9
+    assert r["alive_per_bounce"][0] == 16 * 16
+    assert r["compact_ms"] is None and r["shade_ms"] is None

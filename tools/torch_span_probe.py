@@ -2,8 +2,8 @@
 """What the program's spans and counters (utils/profiling.py) show of a
 served frame, on one CUDA card.
 
-    python3 tools/torch_span_probe.py [--cells bunny-serve cornell-serve]
-        [--out span_probe.json]
+    python3 tools/torch_span_probe.py [--cells bunny-serve cornell-serve
+        bsdf-serve] [--out span_probe.json]
 
 For each serving cell of BENCHMARK.json it builds the cell's scene and
 ``Renderer`` as the benchmark does, serves a few frames (``step(1)`` then
@@ -18,13 +18,20 @@ inside ``profiling.counting()``, and charges
   in at the gap's middle (``idle_ms``);
 
 and reads the counters: the lanes handed to the closest-hit queries and
-the live ones among them.  From these it prints ``intersect_ms`` (device
-ms inside ``intersect``), ``sweep_glue_ms`` (inside ``sweep.sort`` and
-``sweep.cull``), ``transport_idle_ms`` (idle ms whose innermost span is
-``bounce``) and ``live_lane_share`` (100 · alive ÷ lanes).  The last line
-is one JSON object with every number beside the card's name and power
-limit.  ``--device cpu --size 32`` rehearses it on a CPU (there are no
-device operations, so the device numbers are empty).
+the live ones among them, and under compaction the live lanes and the
+block-rounded prefix of each partition.  From these it prints
+``intersect_ms`` (device ms inside ``intersect``), ``sweep_glue_ms``
+(inside ``sweep.sort`` and ``sweep.cull``), ``transport_idle_ms`` (idle ms
+whose innermost span is ``bounce``), ``live_lane_share`` (100 · alive ÷
+lanes), ``compact_ms`` (device and idle ms whose innermost span is
+``compact``), ``padding_share`` (1 − ``compact.alive`` ÷ ``compact.kept``:
+the share of the compacted bounces' lanes that were dead padding) and
+``shade_ms`` (device ms of the fused shading kernel T1, ``shade_segment``),
+beside the profiled frame's live lanes entering each bounce
+(``golden.alive_per_bounce``, every lane marched, outside the profile).
+The last line is one JSON object with every number beside the card's
+name and power limit.  ``--device cpu --size 32`` rehearses it on a CPU
+(there are no device operations, so the device numbers are empty).
 """
 
 from __future__ import annotations
@@ -41,7 +48,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from perfbench import harness, program  # noqa: E402
+from wc_path_tracer_tpu_torch.render import dispatch, golden  # noqa: E402
 from wc_path_tracer_tpu_torch.render.renderer import Renderer  # noqa: E402
+from wc_path_tracer_tpu_torch.scene import camera  # noqa: E402
 from wc_path_tracer_tpu_torch.utils import profiling  # noqa: E402
 
 SPAN_NAMES = tuple(name for name, _ in profiling.SPANS)
@@ -159,18 +168,33 @@ def serve_cell(name: str, device, size) -> dict:
             frame()
     ops, host = kineto(prof)
     total = device_ms(ops, host)
+    own = self_ms(ops, host)
     idle = idle_ms(ops, host)
     lanes, alive = counts.get("intersect.lanes"), counts.get("intersect.alive")
+    kept = counts.get("compact.kept")
     glue = [total[s] for s in ("sweep.sort", "sweep.cull") if s in total]
+    cfg = rdr.cfg
+    with torch.no_grad():
+        per_bounce = golden.alive_per_bounce(
+            rdr.scene, camera.camera_matrices(rdr.camera,
+                                             cfg.width / cfg.height),
+            cfg, rdr.frame_count - 1,
+            dispatch.get_intersect_fn(config["renderer"], rdr.scene, cfg))
     return dict(
         cell=name, width=render["width"], height=render["height"],
         busy_ms=sum(e - s for s, e in merged(
             (s, s + d) for _, s, d, _ in ops)) / 1e6,
-        device_ms=total, self_ms=self_ms(ops, host), idle_ms=idle,
+        device_ms=total, self_ms=own, idle_ms=idle,
         counters=counts, intersect_ms=total.get("intersect"),
         sweep_glue_ms=sum(glue) if glue else None,
         transport_idle_ms=idle.get("bounce"),
-        live_lane_share=100.0 * alive / lanes if lanes else None)
+        live_lane_share=100.0 * alive / lanes if lanes else None,
+        compact_ms=own.get("compact", 0.0) + idle.get("compact", 0.0)
+        if ops else None,
+        padding_share=1.0 - counts["compact.alive"] / kept if kept else None,
+        shade_ms=sum(d for n, _, d, _ in ops if "shade_segment" in n) / 1e6
+        if ops else None,
+        alive_per_bounce=[int(a) for a in per_bounce])
 
 
 def card(device) -> dict:
@@ -186,7 +210,7 @@ def card(device) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cells", nargs="+",
-                    default=["bunny-serve", "cornell-serve"])
+                    default=["bunny-serve", "cornell-serve", "bsdf-serve"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--size", type=int, default=0,
                     help="square frame size in place of the cell's "
@@ -204,7 +228,10 @@ def main() -> int:
         print(f"[{name}] busy {r['busy_ms']:.2f} ms; intersect_ms "
               f"{r['intersect_ms']}, sweep_glue_ms {r['sweep_glue_ms']}, "
               f"transport_idle_ms {r['transport_idle_ms']}, "
-              f"live_lane_share {r['live_lane_share']}", flush=True)
+              f"live_lane_share {r['live_lane_share']}, compact_ms "
+              f"{r['compact_ms']}, padding_share {r['padding_share']}, "
+              f"shade_ms {r['shade_ms']}; alive per bounce "
+              f"{r['alive_per_bounce']}", flush=True)
         for key in ("device_ms", "self_ms", "idle_ms", "counters"):
             print(f"  {key}: " + ", ".join(
                 f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"

@@ -790,6 +790,7 @@ def _bounce_fused(scene: Scene, cfg: RenderConfig, intersect_fn,
     """``_bounce`` with everything after the query in one launch of T1.
     NEE is off, so ``pdf_prev`` stays as it is."""
     rec = _closest_hit(scene, cfg, intersect_fn, s)
+    profiling.count("shade.lanes", s.o.shape[0])
     o, d, total, trans, seed, alive = shade.shade_segment_kernel(
         s.o, s.d, s.total, s.trans, s.seed, s.alive, rec, materials,
         sky_gradient=cfg.sky != "black",
@@ -998,7 +999,9 @@ def trace_rays_compact(scene: Scene, origin, direction, seed,
     Each bounce costs one host read of ``n_alive``; lanes carry their PCG
     streams, and a scatter through the carried ray index undoes the
     permutation of ``total`` and ``seed`` at the end.  Autograd saves the
-    prefixes' residuals only."""
+    prefixes' residuals only.  Each partition and the final restore are the
+    ``compact`` span; ``compact.alive`` counts ``n_alive`` and
+    ``compact.kept`` the prefix handed to the bounce."""
     if intersect_fn is None:
         intersect_fn = intersect_scene_brute
     R = direction.shape[0]
@@ -1015,30 +1018,34 @@ def trace_rays_compact(scene: Scene, origin, direction, seed,
     orig = torch.arange(R, device=direction.device)   # lane -> ray
     done = []             # (total, seed, ray) of the lanes out of play
     for bounce in range(n_dense, cfg.max_bounces + 1):
-        alive = lanes["alive"]
-        n_alive = int(alive.sum())
-        live_i = alive.long()
-        pos = torch.where(alive, torch.cumsum(live_i, 0) - 1,
-                          n_alive + torch.cumsum(1 - live_i, 0) - 1)
-        order = torch.empty_like(pos).scatter_(0, pos, torch.arange(
-            pos.shape[0], device=pos.device))
-        lanes = {k: v.index_select(0, order) for k, v in lanes.items()}
-        orig = orig.index_select(0, order)
-        n = -(-n_alive // B) * B
-        done.append((lanes["total"][n:], lanes["seed"][n:], orig[n:]))
-        lanes = {k: v[:n] for k, v in lanes.items()}
-        orig = orig[:n]
+        with profiling.stage("compact"):
+            alive = lanes["alive"]
+            n_alive = int(alive.sum())
+            live_i = alive.long()
+            pos = torch.where(alive, torch.cumsum(live_i, 0) - 1,
+                              n_alive + torch.cumsum(1 - live_i, 0) - 1)
+            order = torch.empty_like(pos).scatter_(0, pos, torch.arange(
+                pos.shape[0], device=pos.device))
+            lanes = {k: v.index_select(0, order) for k, v in lanes.items()}
+            orig = orig.index_select(0, order)
+            n = -(-n_alive // B) * B
+            profiling.count("compact.alive", n_alive)
+            profiling.count("compact.kept", n)
+            done.append((lanes["total"][n:], lanes["seed"][n:], orig[n:]))
+            lanes = {k: v[:n] for k, v in lanes.items()}
+            orig = orig[:n]
         if n == 0:
             break
         lanes = _lanes(_bounce_segment(scene, cfg, intersect_fn,
                                        PathState(**lanes, bounce=bounce),
                                        materials))
-    total = torch.cat([lanes["total"]] + [d[0] for d in done])
-    seed = torch.cat([lanes["seed"]] + [d[1] for d in done])
-    orig = torch.cat([orig] + [d[2] for d in done])
-    inv = torch.empty_like(orig).scatter_(0, orig, torch.arange(
-        R, device=orig.device))
-    return total.index_select(0, inv), seed.index_select(0, inv)
+    with profiling.stage("compact"):
+        total = torch.cat([lanes["total"]] + [d[0] for d in done])
+        seed = torch.cat([lanes["seed"]] + [d[1] for d in done])
+        orig = torch.cat([orig] + [d[2] for d in done])
+        inv = torch.empty_like(orig).scatter_(0, orig, torch.arange(
+            R, device=orig.device))
+        return total.index_select(0, inv), seed.index_select(0, inv)
 
 
 def trace_rays_edge(scene: Scene, origin, direction, seed, seed_bg,

@@ -36,11 +36,17 @@ SPANS = (
     ("sweep.cull", "intersect"),     # padding, cull, cluster order, packing
     ("sweep.kernel", "intersect"),   # the block sweep: B1, B2 or a twin
     ("sweep.reshade", "intersect"),  # the winner's vertices, resolve_hit
+    ("compact", "render_step"),  # golden.trace_rays_compact: a later
+    #                              bounce's partition, and the final restore
 )
 
 # counted at each closest-hit query of golden._bounce_segment: the lanes
-# handed to it (the compacted width under ``compact``) and the live ones
-COUNTERS = ("intersect.lanes", "intersect.alive")
+# handed to it (the compacted width under ``compact``) and the live ones;
+# at each partition of golden.trace_rays_compact: the live lanes and the
+# block-rounded prefix handed to the bounce; at each launch of the fused
+# shading kernel T1 (golden._bounce_fused): the lanes handed to it
+COUNTERS = ("intersect.lanes", "intersect.alive", "compact.alive",
+            "compact.kept", "shade.lanes")
 
 _OFF = contextlib.nullcontext()
 _totals = contextvars.ContextVar("profiling_totals", default=None)
