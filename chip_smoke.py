@@ -44,6 +44,11 @@ record of every segment of a 1024 x 1024 Cornell frame (black sky) and a
 512 x 512 bunny frame (gradient sky, Russian roulette from bounce 1):
 every field of the next PathState bit for bit, both timed, T1 against its
 bytes bound.
+Its [brute] phase holds H1 (kernels/csrc/brute_hit.cu), the brute-force
+closest-hit search, against ``golden._brute_search`` on every query of a
+1024 x 1024 frame of both serving boxes (the Cornell box, 5 queries; the
+full-BSDF box with Russian roulette and compaction, 9): its four outputs
+bit for bit, both timed, H1 against its operations bound.
 
 Its [train] phase drives the training path: the bench's fwd+bwd step
 (``parallel.render.scene_loss_grad`` with the bench loss, mean(img^2) over
@@ -133,7 +138,9 @@ import torch
 
 from wc_path_tracer_tpu_torch import RenderConfig, bench
 from wc_path_tracer_tpu_torch.io.image import read_png
-from wc_path_tracer_tpu_torch.kernels import build, cluster, shade, traversal
+from perfbench import peaks
+from wc_path_tracer_tpu_torch.kernels import (brute, build, cluster, shade,
+                                              traversal)
 from wc_path_tracer_tpu_torch.kernels.launches import (KERNELS, read_counts,
                                                        reset_counts)
 from wc_path_tracer_tpu_torch.models.builtin import (cornell_box_scene,
@@ -182,6 +189,13 @@ OPS_PER_INNER = 2 * OPS_PER_SLAB + 3   # the children's slabs + the choice
 # per launch.
 T1_STATE, T1_HIT_FLAG, T1_HIT_REST = 57, 1, 33
 T1_FIELDS = ("o", "d", "total", "trans", "seed", "alive")
+# H1's operations bound: each lane tests every live slot, a triangle in
+# OPS_PER_TEST, a sphere in OPS_PER_SPHERE (oc 3, b 5, c 7, the
+# discriminant 2, its guard and root 2, the miss and the two roots 4, the
+# root's choice and t > 0 2); its bytes: the rays in, the four outputs out,
+# the slot tables once
+OPS_PER_SPHERE = 25
+H1_FIELDS = ("t_s", "s_idx", "t_tri", "t_idx")
 PLANE_T_RTOL = 5e-5          # B2 vs MT t: see mxu_phase
 # sweep layouts timed against each other: (CTAs per ray block, threads per
 # ray), for B1 and for B2
@@ -622,6 +636,92 @@ def shade_phase(smi, cscene, cmats, ccfg, scene, mats, cfg):
                 "(black sky); replaces no TPU kernel: the JAX transport is "
                 "one jitted program",
         per_segment=box, bunny=mean_entry(bunny), bunny_per_segment=bunny,
+        card=smi)
+
+
+def brute_cell(smi, label, scene, mats, cfg):
+    """H1 against ``golden._brute_search`` on every closest-hit query of
+    one frame at full size (dispatch "auto", compaction as ``cfg`` says):
+    the four outputs bit for bit, both timed (CUDA events), H1 against its
+    operations bound -> one record per query."""
+    queries = []
+
+    def capture(scene, o, d, cfg):
+        # the camera's origin, expanded, stays a view (read in place)
+        queries.append((o if o.stride(0) == 0 else o.clone(), d.clone()))
+        return golden.intersect_scene_brute(scene, o, d, cfg)
+
+    golden.render_frame(scene, mats, cfg, 0, capture)
+    sph, mesh = scene.spheres, scene.mesh
+    abc = golden.triangle_vertices(mesh)
+    live_tris = int(golden._live_triangle_mask(scene).sum())
+    per_query = []
+    for q, (o, d) in enumerate(queries):
+
+        def kernel(o=o, d=d):
+            return brute.brute_hit_kernel(
+                o, d, sph.position, sph.radius, sph.count, *abc,
+                mesh.tri_draw, mesh.draw_count, cfg.sphere_near_root_only)
+
+        def plain(o=o, d=d):
+            return golden._brute_search(scene, o, d, cfg, *abc)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        differ = {name: bits_differ(g, w)
+                  for name, g, w in zip(H1_FIELDS, got, want)}
+        differ = {k: v for k, v in differ.items() if v}
+        err = max(float((g.double() - w.double()).abs().nan_to_num(0.0)
+                        .max()) for g, w in zip(got, want))
+        ms = event_ms(kernel, 20)
+        plain_ms = event_ms(plain, 3)
+        lanes = d.shape[0]
+        ops = lanes * (live_tris * OPS_PER_TEST
+                       + int(sph.count) * OPS_PER_SPHERE)
+        nb = (nbytes(o[:1] if o.stride(0) == 0 else o, d, *got, *abc,
+                     mesh.tri_draw, sph.position, sph.radius))
+        least_s, bound_by = peaks.bound(ops, nb)
+        bound_ms = least_s * 1e3
+        per_query.append(dict(
+            query=q, lanes=lanes, bitwise=not differ, max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, ops=ops, bytes=nb, bound_ms=bound_ms,
+            bound_by=bound_by))
+        print(f"[brute] {label} query {q}: {lanes} lanes; H1 {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}, {ops / 1e9:.3f} GFLOP, {nb / 1e6:.2f} MB), "
+              f"{100 * bound_ms / ms:.1f} % of it; differ {differ or 'none'}"
+              f", on {smi}", flush=True)
+        check(not differ, f"[brute] {label} query {q}: H1 equals "
+              f"_brute_search bit for bit in {', '.join(H1_FIELDS)}")
+    return per_query
+
+
+def brute_phase(smi, cscene, cmats, ccfg):
+    """The [brute] phase: H1 against its plain twin on every query of a
+    1024^2 frame of each serving box, ``cornell-serve``'s (5 queries) and
+    ``bsdf-serve``'s (9, the last five compacted) -> H1's entry of the
+    kernels line."""
+    fscene, fcam = full_bsdf_scene(device="cuda")
+    fcfg = RenderConfig(width=1024, height=1024, samples=1, max_bounces=8,
+                        sky="black", use_rr=True, rr_start_bounce=3,
+                        compact=True)
+    with torch.no_grad():
+        box = brute_cell(smi, "cornell 1024^2", cscene, cmats,
+                         ccfg.replace(sky="black"))
+        bsdf = brute_cell(smi, "full_bsdf 1024^2 rr compact", fscene,
+                          camera_matrices(fcam, 1.0), fcfg)
+    check(len(box) == 5 and len(bsdf) == 9, "[brute] one frame of each box "
+          "makes 5 and 9 closest-hit queries")
+    return dict(
+        name="brute_hit", route="cuda",
+        source="wc_path_tracer_tpu_torch/kernels/csrc/brute_hit.cu",
+        replaces=None,
+        max_abs_err=max(r["max_abs_err"] for r in box + bsdf),
+        **mean_entry(box), library_ms=None,
+        ms_note="mean per launch over one 1024^2 Cornell frame's 5 "
+                "queries; replaces no TPU kernel: XLA fused the JAX brute "
+                "sweep",
+        per_query=box, bsdf=mean_entry(bsdf), bsdf_per_query=bsdf,
         card=smi)
 
 
@@ -1392,7 +1492,7 @@ def vertex_steps(smi, lit, cam):
             trainable=("albedo", "vertices"), learning_rate=1e-3, steps=3,
             vary_seed=True, log_every=1), renderer="auto")
     counts = read_counts()
-    check(counts == {"B1": 30, "B2": 0, "B3": 0, "T1": 0},
+    check(counts == {"B1": 30, "B2": 0, "B3": 0, "T1": 0, "H1": 0},
           f"[inverse] 3 lit-bunny steps launched {counts} (B1: 10 per step)")
     moved = float((out.mesh.vertices - lit.mesh.vertices).abs().max())
     check(moved > 0.0 and all(math.isfinite(h["grad_norm"]) for h in hist),
@@ -1415,9 +1515,10 @@ def train_phase(smi, scene, cam, split_scene, cscene, ccam):
     bunny, cornell = RenderConfig(**BUNNY), RenderConfig(**CORNELL)
     cells = {}
     for label, sc, m, cfg, renderer, per_step in (
-            ("cornell 1024^2", cscene, cmats, cornell, "auto", {}),
+            ("cornell 1024^2", cscene, cmats, cornell, "auto",
+             {"H1": 5}),
             ("cornell 1024^2 nee+mis", cscene, cmats,
-             cornell.replace(**NEE), "auto", {}),
+             cornell.replace(**NEE), "auto", {"H1": 5}),
             ("bunny 512^2 auto (B1)", scene, mats, bunny, "auto",
              {"B1": 5}),
             ("bunny 512^2 mxu (B2)", scene, mats,
@@ -1613,7 +1714,8 @@ def edge_vertex_steps(smi, lit, cam):
             trainable=("vertices",), learning_rate=1e-3, steps=3,
             vary_seed=False, log_every=1), renderer="auto")
     counts = read_counts()
-    check(counts == {"B1": 3 * EDGE_LIT_B1, "B2": 0, "B3": 0, "T1": 0},
+    check(counts == {"B1": 3 * EDGE_LIT_B1, "B2": 0, "B3": 0, "T1": 0,
+                     "H1": 0},
           f"[edge] 3 lit-bunny vertex steps launched {counts} (B1: "
           f"{EDGE_LIT_B1} per step)")
     losses = [h["loss"] for h in hist]
@@ -1643,8 +1745,9 @@ def edge_phase(smi, scene, cam, cscene, ccam):
              bunny.replace(cluster_kernel="mxu"), {"B1": 1, "B2": 2 * nb}),
             ("lit bunny 512^2 nee+mis auto (B1)", lit, cam,
              bunny.replace(**NEE), {"B1": EDGE_LIT_B1}),
-            ("cornell 1024^2 (brute)", cscene, ccam,
-             RenderConfig(**CORNELL, edge_grads=True), {})):
+            ("cornell 1024^2 (brute; H1 after the widened query)", cscene,
+             ccam, RenderConfig(**CORNELL, edge_grads=True),
+             {"H1": 2 * nb})):
         cells[label] = edge_cell(smi, label, sc, c, cfg, per_step)
     loss_grad = prender.scene_loss_grad(bunny, EDGE_TRAINABLE, "auto")
     target = torch.zeros((bunny.height, bunny.width, 3), device="cuda")
@@ -1741,7 +1844,8 @@ def compact_phase(smi, scene, mats):
           "[compact] the brute-force compacted full_bsdf frame equals the "
           "plain frame bit for bit")
     b1 = out["bunny 512^2 rr from bounce 1 (B1)"]
-    check(all(b1[k]["launches"] == {"B1": 15, "B2": 0, "B3": 0, "T1": 15}
+    check(all(b1[k]["launches"] == {"B1": 15, "B2": 0, "B3": 0, "T1": 15,
+                                    "H1": 0}
               for k in ("off", "on")),
           "[compact] 3 RR bunny frames launched B1 and T1 15 times each with "
           "compaction off and on")
@@ -1772,7 +1876,7 @@ def serve_phase(smi, scene, cam, cscene, ccam):
         times.append(s * 1e3)
     counts = read_counts()
     check(counts == {"B1": 5 * SERVE_FRAMES, "B2": 0, "B3": 0,
-                     "T1": 5 * SERVE_FRAMES},
+                     "T1": 5 * SERVE_FRAMES, "H1": 0},
           f"[serve] {SERVE_FRAMES} Renderer steps launched {counts} (B1 5 "
           "per frame)")
     check(r.frame_count == SERVE_FRAMES and torch.equal(r.image, want),
@@ -1840,10 +1944,10 @@ def serve_phase(smi, scene, cam, cscene, ccam):
     reset_counts()
     _, s = sync_time(lambda: rc.step(3))
     ccounts = read_counts()
-    check(ccounts == {"B1": 0, "B2": 0, "B3": 0, "T1": 15}
+    check(ccounts == {"B1": 0, "B2": 0, "B3": 0, "T1": 15, "H1": 15}
           and rc.frame_count == 4,
-          "[serve] Cornell 1024^2 Renderer steps launch no closest-hit "
-          "kernel (brute force) and T1 5 times a step")
+          "[serve] Cornell 1024^2 Renderer steps launch no sweep or walk "
+          "(brute force), H1 and T1 5 times a step")
     check(bool(torch.isfinite(rc.image).all())
           and 0.01 < float(rc.image.mean()) < 3,
           f"[serve] Cornell image finite, mean {float(rc.image.mean()):.4f}")
@@ -1894,9 +1998,9 @@ def cli_phase(smi, kind):
     bunny = ["--gltf", BUNNY_GLB, "--width", "512", "--height", "512",
              "--bloom"]
     b1 = {"cluster_sweep": 5, "cluster_sweep_mxu": 0, "bvh_walk": 0,
-          "shade_segment": 5}
+          "shade_segment": 5, "brute_hit": 0}
     b3 = {"cluster_sweep": 0, "cluster_sweep_mxu": 0, "bvh_walk": 5,
-          "shade_segment": 5}
+          "shade_segment": 5, "brute_hit": 0}
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         p = functools.partial(os.path.join, tmp)
@@ -2130,7 +2234,7 @@ def scene_cli(smi, obj, tmp):
     args = ["render", "--obj", obj, "--width", "512", "--height", "512",
             "--bounces", "4", "--frames", str(SCENE_FRAMES)]
     zero = {"cluster_sweep": 0, "cluster_sweep_mxu": 0, "bvh_walk": 0,
-            "shade_segment": 5}
+            "shade_segment": 5, "brute_hit": 0}
     out = {}
     for path, kernel in (("auto", "cluster_sweep"), ("pallas", "bvh_walk")):
         _, err, s = run_cli([*args, "--renderer", path, "--metrics",
@@ -2179,7 +2283,8 @@ def scene_frame(smi, scene, mats, cfg, path, tag):
             scene, mats, cfg, 0, None, frame_fn=frame_fn))
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check(counts == dict({"B1": 0, "B2": 0, "B3": 0, "T1": 5}, **{tag: 5}),
+    check(counts == dict({"B1": 0, "B2": 0, "B3": 0, "T1": 5, "H1": 0},
+                         **{tag: 5}),
           f"[scene] one in-process '{path}' frame launched {counts}")
     check_image(image, f"[scene] in-process '{path}'")
     print(f"[scene] in-process '{path}' frame 0 (the first on this scene): "
@@ -2492,15 +2597,22 @@ def bench_run(smi, label, args):
     want = {"headline": kernel, "bvh_row": "cluster_sweep", "bsdf_row": None,
             "scaling_efficiency_8": None}
     want = {row: want[row] for row in ("headline",) + rows}
-    # T1 shades the forward-only headline's segments (no grad, NEE off)
+    # T1 shades the forward-only headline's segments (no grad, NEE off); H1
+    # searches every segment of the rows on a box (brute force): the
+    # headline's and the scaling row's on any scene but the bunny, and
+    # bsdf_row's 9 (8 bounces)
     a = bench.parse_args(args)[1]
     fused = a.bounces + 1 if a.forward_only and not a.nee else 0
+    box = 0 if a.scene == "bunny" else a.bounces + 1
+    searched = {"headline": box, "bvh_row": 0, "bsdf_row": 9,
+                "scaling_efficiency_8": box}
     zero = {"cluster_sweep": 0, "cluster_sweep_mxu": 0, "bvh_walk": 0,
-            "shade_segment": 0}
+            "shade_segment": 0, "brute_hit": 0}
     check(set(launches) == set(want) and all(
         launches[row]["per_step"] == dict(zero, **(
             {k: 5} if k else {}), **(
-            {"shade_segment": fused} if row == "headline" else {}))
+            {"shade_segment": fused} if row == "headline" else {}),
+            brute_hit=searched[row])
         for row, k in want.items()),
         f"[bench] {label}: kernel launches per step "
         + ", ".join(f"{row} {launches[row]['per_step']}" for row in launches))
@@ -2857,6 +2969,9 @@ def main() -> int:
     # -- 5b. T1, the transport's shading, against its plain twin -----------
     t1 = shade_phase(smi, cscene, cmats, ccfg, scene, mats, cfg)
 
+    # -- 5c. H1, the brute-force closest-hit search, against its twin ------
+    h1 = brute_phase(smi, cscene, cmats, ccfg)
+
     # -- 6. the "pallas" path: the split bunny through the BVH walk ---------
     b3, split_scene = pallas_phase(
         smi, cfg, scene, [line.strip() for line in logs.get(
@@ -2934,7 +3049,8 @@ def main() -> int:
     dp = dp_phase(smi)
     for entry, key, cli_key in ((b2, "B2", "cluster_sweep_mxu"),
                                 (b3, "B3", "bvh_walk"),
-                                (t1, "T1", "shade_segment")):
+                                (t1, "T1", "shade_segment"),
+                                (h1, "H1", "brute_hit")):
         entry.update(slice_launches(serving, cli, dp, key, cli_key))
 
     # -- 13. the native host scene pipeline and the 327,680-triangle OBJ
@@ -2942,7 +3058,8 @@ def main() -> int:
     scene_rec = scene_phase(smi)
     for entry, key, cli_key in ((b2, "B2", "cluster_sweep_mxu"),
                                 (b3, "B3", "bvh_walk"),
-                                (t1, "T1", "shade_segment")):
+                                (t1, "T1", "shade_segment"),
+                                (h1, "H1", "brute_hit")):
         entry.update(scene_entry(scene_rec, key, cli_key))
     b3["scene"] = scene_rec["B3"]
 
@@ -2950,7 +3067,7 @@ def main() -> int:
     # wc_path_tracer_tpu_torch.bench) in subprocesses ----------------------
     bench_rec = bench_phase(smi, scene, mats)
     for entry, cli_key in ((b2, "cluster_sweep_mxu"), (b3, "bvh_walk"),
-                           (t1, "shade_segment")):
+                           (t1, "shade_segment"), (h1, "brute_hit")):
         entry["bench_launches"] = bench_launches(bench_rec, cli_key)
     w = b3["bench"] = bench_rec["B3"]
     b3.update(bench_ms=w["ms"], bench_plain_ms=w["plain_ms"],
@@ -3001,7 +3118,7 @@ def main() -> int:
         "scene": {k: v for k, v in scene_rec.items() if k != "B3"},
         "bench_launches": bench_launches(bench_rec, "cluster_sweep"),
         "bench": {k: v for k, v in bench_rec.items() if k != "B3"},
-    }, b2, b3, t1]}))
+    }, b2, b3, t1, h1]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

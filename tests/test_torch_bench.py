@@ -280,7 +280,7 @@ def test_json_line():
     assert [r["row"] for r in launches] == ["headline"]
     assert launches[0]["counts"] == {"cluster_sweep": 0,
                                      "cluster_sweep_mxu": 0, "bvh_walk": 0,
-                                     "shade_segment": 0}
+                                     "shade_segment": 0, "brute_hit": 0}
 
 
 def test_row_metric_strings(capsys, monkeypatch):

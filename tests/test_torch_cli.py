@@ -37,7 +37,8 @@ def test_render_resume_equals_renderer(tmp_path):
     assert all(0.0 < r["alive_fraction"] <= 1.0 for r in recs)
     assert all(r["kernel_launches"] == {"cluster_sweep": 0,
                                         "cluster_sweep_mxu": 0,
-                                        "bvh_walk": 0, "shade_segment": 0}
+                                        "bvh_walk": 0, "shade_segment": 0,
+                                        "brute_hit": 0}
                for r in recs)
     resumed = str(tmp_path / "b.png")
     r = main(["render", *SMALL, "--scene", "cornell", "--nee", "--frames",

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from wc_path_tracer_tpu_torch import RenderConfig
-from wc_path_tracer_tpu_torch.kernels import cluster, shade, traversal
+from wc_path_tracer_tpu_torch.kernels import (brute, cluster, shade,
+                                              traversal)
 from wc_path_tracer_tpu_torch.models import builtin
 from wc_path_tracer_tpu_torch.models.procedural import (bumpy_sphere,
                                                          bunny_gltf_scene,
@@ -35,6 +36,8 @@ from wc_path_tracer_tpu_torch.scene.types import (MATERIAL_DIELECTRIC,
                                                   MATERIAL_METAL,
                                                   SceneBuilder)
 from wc_path_tracer_tpu_torch.utils import profiling
+from test_torch_brute import CASES as BRUTE_CASES
+from test_torch_brute import _case as brute_case
 
 
 def _need_card():
@@ -732,7 +735,7 @@ def test_bench_on_card():
                 if line.startswith("bench: launches ")]
     assert launches[0]["per_step"] == {"cluster_sweep": 5,
                                        "cluster_sweep_mxu": 0, "bvh_walk": 0,
-                                       "shade_segment": 0}
+                                       "shade_segment": 0, "brute_hit": 0}
 
 
 def _bits_differ(got, want):
@@ -883,3 +886,183 @@ def test_shade_kernel_launches_per_frame(samples, bounces):
         == 4 * samples * (bounces + 1)
     assert counts["intersect.lanes"] \
         == 32 * 32 * samples * (bounces + 1)
+
+
+def _brute_both(scene, o, d, cfg):
+    """H1 and its plain twin on the same lanes -> the fields that differ
+    bit for bit ({} where none does)."""
+    abc = golden.triangle_vertices(scene.mesh)
+    sph, mesh = scene.spheres, scene.mesh
+    before = brute.brute_hit_kernel.launches
+    got = brute.brute_hit_kernel(o, d, sph.position, sph.radius, sph.count,
+                                 *abc, mesh.tri_draw, mesh.draw_count,
+                                 cfg.sphere_near_root_only)
+    want = golden._brute_search(scene, o, d, cfg, *abc)
+    torch.cuda.synchronize()
+    assert brute.brute_hit_kernel.launches == before + 1
+    differ = {name: _bits_differ(g, w) for name, g, w in
+              zip(("t_s", "s_idx", "t_tri", "t_idx"), got, want)}
+    return {k: v for k, v in differ.items() if v}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BRUTE_CASES))
+def test_brute_kernel_matches_plain_twin(case):
+    """H1 against ``golden._brute_search`` bit for bit on the CPU file's
+    cases (near roots on and off, index ties, all miss, dead slots), then
+    on 2^20 + 5 lanes of the same rays (a partial last block)."""
+    _need_card()
+    scene, o, d, cfg = brute_case(case)
+    scene, o, d = scene.to("cuda"), o.cuda(), d.cuda()
+    assert _brute_both(scene, o, d, cfg) == {}
+    n = 2 ** 20 + 5
+    reps = -(-n // o.shape[0])
+    assert _brute_both(scene, o.repeat(reps, 1)[:n], d.repeat(reps, 1)[:n],
+                       cfg) == {}
+
+
+@pytest.mark.gpu
+def test_brute_kernel_takes_many_slots():
+    """Dispatch "golden" forced onto a mesh of 1,280 triangles and 300
+    sphere slots (290 live): H1 stages them tile by tile (256 slots a
+    tile), bit for bit with its twin."""
+    _need_card()
+    scene, cam = bunny_like_scene(3, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    sph = scene.spheres
+    spheres = dataclasses.replace(
+        sph, position=torch.rand(300, 3, generator=g, device="cuda") * 4 - 2,
+        radius=torch.rand(300, generator=g, device="cuda") * 0.2,
+        material=torch.zeros(300, dtype=torch.int32, device="cuda"),
+        count=torch.tensor(290, dtype=torch.int32, device="cuda"))
+    scene = dataclasses.replace(scene, spheres=spheres)
+    assert scene.mesh.triangle_capacity > 4 * 256
+    mats = camera_matrices(cam, 1.0)
+    d = primary_ray_directions(mats, 128, 128).reshape(-1, 3)
+    o = mats.position.expand(d.shape[0], 3)
+    cfg = RenderConfig(width=128, height=128)
+    assert _brute_both(scene, o, d, cfg) == {}
+    assert _brute_both(scene, o, d, cfg.replace(
+        sphere_near_root_only=False)) == {}
+
+
+def _serving_query(name):
+    """(scene, origin, direction, cfg) of one closest-hit query of a
+    serving cell's box: the 1024^2 Cornell primary query, or the full-BSDF
+    box's fourth segment at 512^2, its dead lanes (Russian roulette from
+    bounce 1) keeping their last rays."""
+    if name == "cornell":
+        scene, cam = builtin.cornell_box_scene(device="cuda")
+        n, bounces = 1024, 0
+    else:
+        scene, cam = builtin.full_bsdf_scene(device="cuda")
+        n, bounces = 512, 3
+    cfg = RenderConfig(width=n, height=n, max_bounces=8, use_rr=True,
+                       rr_start_bounce=1, sky="black")
+    mats = camera_matrices(cam, 1.0)
+    dirs = primary_ray_directions(mats, n, n).reshape(-1, 3)
+    lane = torch.arange(n * n, device="cuda")
+    s = golden._initial_state(mats.position.expand(n * n, 3), dirs,
+                              rng.pixel_seed(lane, 5))
+    with torch.no_grad():
+        for _ in range(bounces):
+            s = golden._bounce(scene, cfg, golden.intersect_scene_brute, s)
+    if bounces:
+        assert 0 < int(s.alive.sum()) < n * n
+    return scene, s.o, s.d, cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cornell", "full-bsdf"])
+def test_brute_kernel_on_serving_queries(name, monkeypatch):
+    """H1 bit for bit with its twin on every lane of a serving query, and
+    the query's HitRecord through H1 equal to the plain path's
+    (``brute.on_card`` patched to say no), with grad mode on and the
+    vertices and camera origin requiring grad."""
+    _need_card()
+    scene, o, d, cfg = _serving_query(name)
+    assert _brute_both(scene, o, d, cfg) == {}
+    mesh = dataclasses.replace(
+        scene.mesh, vertices=scene.mesh.vertices.clone().requires_grad_())
+    scene = dataclasses.replace(scene, mesh=mesh)
+    o = o.clone().requires_grad_()
+
+    def record():
+        before = brute.brute_hit_kernel.launches
+        rec = golden.intersect_scene_brute(scene, o, d, cfg)
+        torch.cuda.synchronize()
+        return rec, brute.brute_hit_kernel.launches - before
+
+    fused, launched = record()
+    assert launched == 1 and fused.p.requires_grad
+    monkeypatch.setattr(brute, "on_card", lambda t: False)
+    plain, launched = record()
+    assert launched == 0
+    for field in ("t", "p", "normal", "hit", "front", "material"):
+        g, w = getattr(fused, field).detach(), getattr(plain, field).detach()
+        assert _bits_differ(g, w) is None, (field, _bits_differ(g, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_nee", [False, True], ids=["nee-off", "nee-on"])
+def test_brute_kernel_grads_equal_plain(use_nee, monkeypatch):
+    """A 32 x 32 Cornell box's bench loss and grads (vertices included)
+    through H1 equal the plain path's: the image and loss bitwise, the
+    grads bitwise under deterministic algorithms (within 1e-6 of each
+    leaf's largest |g| where PyTorch names an op without a deterministic
+    form)."""
+    _need_card()
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    scene, cam = builtin.cornell_box_scene(device="cuda")
+    mats = camera_matrices(cam, 1.0)
+    cfg = RenderConfig(width=32, height=32, max_bounces=2, use_nee=use_nee)
+
+    def make(s, c):
+        return golden.intersect_scene_brute
+
+    before = brute.brute_hit_kernel.launches
+    ik, lk, gk, nk = _nee_grads(scene, mats, cfg, make)
+    assert brute.brute_hit_kernel.launches - before == 2 * 3
+    monkeypatch.setattr(brute, "on_card", lambda t: False)
+    ip, lp, gp, np_ = _nee_grads(scene, mats, cfg, make)
+    assert brute.brute_hit_kernel.launches - before == 2 * 3
+    assert torch.isfinite(ik).all() and float(lk) > 0.0
+    assert torch.equal(ik, ip) and torch.equal(lk, lp)
+    for key in gk:
+        if nk or np_:
+            scale = float(gp[key].abs().max())
+            assert float((gk[key] - gp[key]).abs().max()) <= 1e-6 * scale, \
+                (key, nk + np_)
+        else:
+            assert torch.equal(gk[key], gp[key]), key
+
+
+@pytest.mark.gpu
+def test_brute_kernel_wrapper_rejects_bad_inputs():
+    """H1's wrapper raises on a wrong dtype, shape or device, and reads an
+    expanded origin in place and any other layout as a copy."""
+    _need_card()
+    scene, cam = builtin.full_bsdf_scene(device="cuda")
+    sph, mesh = scene.spheres, scene.mesh
+    abc = golden.triangle_vertices(mesh)
+    n = 1000
+    d = torch.nn.functional.normalize(torch.randn(n, 3, device="cuda"), dim=1)
+    origin = torch.tensor([278.0, 273.0, 300.0], device="cuda")
+
+    def call(o=origin.expand(n, 3), d=d, count=sph.count,
+             tri_draw=mesh.tri_draw):
+        return brute.brute_hit_kernel(o, d, sph.position, sph.radius, count,
+                                      *abc, tri_draw, mesh.draw_count, True)
+
+    for bad in (dict(d=d[:, :2].contiguous()), dict(d=d.double()),
+                dict(o=origin.expand(n, 3).cpu()),
+                dict(count=sph.count.long()),
+                dict(tri_draw=mesh.tri_draw[:-1])):
+        with pytest.raises(ValueError):
+            call(**bad)
+    a = call()
+    b = call(o=origin.expand(n, 3).contiguous())
+    c = call(o=torch.cat([origin.expand(n, 3)] * 2, 1)[:, 3:])
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, c):
+        assert _bits_differ(y, x) is None and _bits_differ(z, x) is None

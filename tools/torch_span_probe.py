@@ -26,7 +26,8 @@ whose innermost span is ``bounce``), ``live_lane_share`` (100 · alive ÷
 lanes), ``compact_ms`` (device and idle ms whose innermost span is
 ``compact``), ``padding_share`` (1 − ``compact.alive`` ÷ ``compact.kept``:
 the share of the compacted bounces' lanes that were dead padding) and
-``shade_ms`` (device ms of the fused shading kernel T1, ``shade_segment``),
+``shade_ms`` (device ms of the fused shading kernel T1, ``shade_segment``)
+and ``brute_hit_ms`` (of the brute-force search H1, ``brute_hit``),
 beside the profiled frame's live lanes entering each bounce
 (``golden.alive_per_bounce``, every lane marched, outside the profile).
 The last line is one JSON object with every number beside the card's
@@ -194,6 +195,8 @@ def serve_cell(name: str, device, size) -> dict:
         padding_share=1.0 - counts["compact.alive"] / kept if kept else None,
         shade_ms=sum(d for n, _, d, _ in ops if "shade_segment" in n) / 1e6
         if ops else None,
+        brute_hit_ms=sum(d for n, _, d, _ in ops if "brute_hit" in n) / 1e6
+        if ops else None,
         alive_per_bounce=[int(a) for a in per_bounce])
 
 
@@ -230,7 +233,8 @@ def main() -> int:
               f"transport_idle_ms {r['transport_idle_ms']}, "
               f"live_lane_share {r['live_lane_share']}, compact_ms "
               f"{r['compact_ms']}, padding_share {r['padding_share']}, "
-              f"shade_ms {r['shade_ms']}; alive per bounce "
+              f"shade_ms {r['shade_ms']}, brute_hit_ms {r['brute_hit_ms']}; "
+              f"alive per bounce "
               f"{r['alive_per_bounce']}", flush=True)
         for key in ("device_ms", "self_ms", "idle_ms", "counters"):
             print(f"  {key}: " + ", ".join(

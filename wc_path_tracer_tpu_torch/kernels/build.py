@@ -72,6 +72,15 @@ SIGNATURES = {
         "wc_shade_segment": ([_P] * 20 + [_I] * 4 + [_P], _I),
         "wc_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "brute_hit": {
+        # origin, direction, sphere positions, radii and live count, the
+        # triangle slots' vertex rows a, b, c, their draws and the live draw
+        # count, the four outputs (t_s, s_idx, t_tri, t_idx), lanes,
+        # origin's row stride, sphere slots, triangle slots, near root
+        # only, stream
+        "wc_brute_hit": ([_P] * 14 + [_I] * 5 + [_P], _I),
+        "wc_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -23,7 +23,9 @@ strategies by the balance heuristic; its shadow query is the backend's
 Where grad mode is off, NEE is off and the lanes lie on the card
 (``_fused_materials``), the shading after each segment's query is one
 launch of the hand-written kernel T1 (``kernels/shade.py``); ``_bounce``
-stays its plain twin, bit for bit, and runs everywhere else.
+stays its plain twin, bit for bit, and runs everywhere else.  Where the
+lanes lie on the card, the brute-force query's search is one launch of H1
+(``kernels/brute.py``), in grad mode too; ``_brute_search`` is its twin.
 
 ``edge_grads`` (the silhouette estimator, ``trace_rays_edge``) widens the
 primary query by half a pixel around sphere limbs and miter-expanded
@@ -41,7 +43,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from wc_path_tracer_tpu_torch.kernels import shade
+from wc_path_tracer_tpu_torch.kernels import brute, shade
 from wc_path_tracer_tpu_torch.ops import bsdf
 from wc_path_tracer_tpu_torch.ops import intersect as ix
 from wc_path_tracer_tpu_torch.ops import rng
@@ -125,9 +127,9 @@ def triangle_vertices(mesh):
             mesh.vertices[tri[:, 2]])
 
 
-def sphere_closest(scene: Scene, origin, direction, cfg: RenderConfig):
-    """Detached closest-sphere search -> (t (R,) with KINF on a miss, and the
-    winner's center, radius, material).  Earliest sphere wins a tie."""
+def _sphere_search(scene: Scene, origin, direction, cfg: RenderConfig):
+    """Detached closest-sphere search -> (t (R,) with KINF on a miss, the
+    winning slot (R,)).  Earliest sphere wins a tie."""
     sph = scene.spheres
     near, far = ix.ray_sphere_sweep(origin.detach(), direction.detach(),
                                     sph.position.detach(),
@@ -138,9 +140,21 @@ def sphere_closest(scene: Scene, origin, direction, cfg: RenderConfig):
     else:
         t_cand = torch.where(near > 0.0, near, far)
     t_sph = torch.where(s_live & (t_cand > 0.0), t_cand, KINF)
-    t_s, idx = _first_min(t_sph)
+    return _first_min(t_sph)
+
+
+def _sphere_rows(scene: Scene, idx):
+    """The winning spheres' center, radius and material."""
+    sph = scene.spheres
     pr = take_rows(torch.cat([sph.position, sph.radius[:, None]], 1), idx)
-    return t_s, pr[:, 0:3], pr[:, 3], sph.material[idx]
+    return pr[:, 0:3], pr[:, 3], sph.material[idx]
+
+
+def sphere_closest(scene: Scene, origin, direction, cfg: RenderConfig):
+    """Detached closest-sphere search -> (t (R,) with KINF on a miss, and the
+    winner's center, radius, material).  Earliest sphere wins a tie."""
+    t_s, idx = _sphere_search(scene, origin, direction, cfg)
+    return (t_s,) + _sphere_rows(scene, idx)
 
 
 def resolve_hit(origin, direction, cfg: RenderConfig, t_s, sph_center,
@@ -188,22 +202,45 @@ def resolve_hit(origin, direction, cfg: RenderConfig, t_s, sph_center,
                      material=material.to(torch.int32))
 
 
+def _brute_search(scene: Scene, origin, direction, cfg: RenderConfig,
+                  a, b, c):
+    """The detached discrete search of ``intersect_scene_brute`` over every
+    sphere slot and every triangle slot (vertex rows ``a``, ``b``, ``c``)
+    -> (t_s, s_idx, t_tri, t_idx): each set's ``_first_min`` over its live
+    hits, KINF and slot 0 where nothing counts.  The plain twin of H1
+    (kernels/brute.py), bit for bit."""
+    t_s, s_idx = _sphere_search(scene, origin, direction, cfg)
+    t_t, t_hit = ix.ray_triangle_sweep(origin.detach(), direction.detach(),
+                                       a.detach(), b.detach(),
+                                       c.detach())                    # (R, T)
+    t_tri, t_idx = _first_min(torch.where(t_hit & _live_triangle_mask(scene),
+                                          t_t, KINF))
+    return t_s, s_idx, t_tri, t_idx
+
+
 def intersect_scene_brute(scene: Scene, origin, direction,
                           cfg: RenderConfig) -> HitRecord:
     """Closest-hit query against every sphere and triangle (masked brute
     force), with the selection semantics of the reference Intersect
     (pathTracer.comp:135-211): spheres first with the earliest index winning
-    ties, triangles override only when strictly closer."""
-    mesh = scene.mesh
-    t_s, sph_center, sph_radius, sph_material = sphere_closest(
-        scene, origin, direction, cfg)
+    ties, triangles override only when strictly closer.
 
+    The search is one launch of H1 where the lanes lie on the card (its
+    lanes counted as ``brute.lanes``), else ``_brute_search``; the winners
+    are re-shaded differentiably either way."""
+    mesh = scene.mesh
     a_all, b_all, c_all = triangle_vertices(mesh)
-    t_t, t_hit = ix.ray_triangle_sweep(origin.detach(), direction.detach(),
-                                       a_all.detach(), b_all.detach(),
-                                       c_all.detach())                # (R, T)
-    t_tri_all = torch.where(t_hit & _live_triangle_mask(scene), t_t, KINF)
-    t_tri, idx = _first_min(t_tri_all)
+    if brute.on_card(direction):
+        profiling.count("brute.lanes", direction.shape[0])
+        sph = scene.spheres
+        t_s, s_idx, t_tri, idx = brute.brute_hit_kernel(
+            origin, direction, sph.position, sph.radius, sph.count, a_all,
+            b_all, c_all, mesh.tri_draw, mesh.draw_count,
+            cfg.sphere_near_root_only)
+    else:
+        t_s, s_idx, t_tri, idx = _brute_search(scene, origin, direction, cfg,
+                                               a_all, b_all, c_all)
+    sph_center, sph_radius, sph_material = _sphere_rows(scene, s_idx)
     abc = take_rows(torch.cat([a_all, b_all, c_all], 1), idx)
     return resolve_hit(origin, direction, cfg, t_s, sph_center, sph_radius,
                        sph_material, t_tri, t_tri < KINF, abc[:, 0:3],

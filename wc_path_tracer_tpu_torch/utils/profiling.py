@@ -44,9 +44,11 @@ SPANS = (
 # handed to it (the compacted width under ``compact``) and the live ones;
 # at each partition of golden.trace_rays_compact: the live lanes and the
 # block-rounded prefix handed to the bounce; at each launch of the fused
-# shading kernel T1 (golden._bounce_fused): the lanes handed to it
+# shading kernel T1 (golden._bounce_fused): the lanes handed to it; at each
+# launch of the brute-force search H1 (golden.intersect_scene_brute): the
+# lanes handed to it
 COUNTERS = ("intersect.lanes", "intersect.alive", "compact.alive",
-            "compact.kept", "shade.lanes")
+            "compact.kept", "shade.lanes", "brute.lanes")
 
 _OFF = contextlib.nullcontext()
 _totals = contextvars.ContextVar("profiling_totals", default=None)
