@@ -25,15 +25,15 @@ they print the active clusters and visits per ray block and the long pole
 (warp, slot step) pairs that pass each of its two warp votes.
 The BVH walk must equal its twin bit for bit (t, offset and the per-ray
 counters) on its frame's five queries, on the unsplit bunny and on seeded
-tie-heavy and signed-zero banks, under every build it is timed in, walking
-every lane and only the transport's live lanes; its frame walking live
-lanes only must equal the frame walking every lane.  The rows entry points
+tie-heavy and signed-zero banks, walking every lane and only the
+transport's live lanes; its frame walking live lanes only must equal the
+frame walking every lane.  The rows entry points
 ``sweep.render_rows``, ``sweep.trace_rays`` and
 ``wavefront.render_rows_pallas`` must launch their kernel 5 times per
 512 x 512 frame and equal the golden transport through the same backend
 bit for bit.  Per query it prints
-the time walking every lane and the live lanes only, the bound, the nodes
-and triangles each ray visits, and the time of each build.
+the time walking every lane and the live lanes only, the bound, and the
+nodes and triangles each ray visits.
 It also renders the 1024 x 1024 Cornell box through the brute-force path,
 ``Scene.empty()`` (which must be the gradient sky alone) at that size,
 and the plain "wavefront" BVH walks at 64 x 64, checks the images, and
@@ -138,11 +138,12 @@ import torch
 
 from wc_path_tracer_tpu_torch import RenderConfig, bench
 from wc_path_tracer_tpu_torch.io.image import read_png
-from perfbench import peaks
+from perfbench import peaks, trace
 from wc_path_tracer_tpu_torch.kernels import (brute, build, cluster, shade,
                                               traversal)
-from wc_path_tracer_tpu_torch.kernels.launches import (KERNELS, read_counts,
-                                                       reset_counts)
+from wc_path_tracer_tpu_torch.kernels.launches import (KERNELS, library,
+                                                       named, read_counts,
+                                                       reset_counts, zeros)
 from wc_path_tracer_tpu_torch.models.builtin import (cornell_box_scene,
                                                      full_bsdf_scene,
                                                      mesh_scene)
@@ -168,8 +169,6 @@ from wc_path_tracer_tpu_torch.scene.types import (MATERIAL_LAMBERTIAN,
                                                   SceneBuilder, leaf_names)
 from wc_path_tracer_tpu_torch.utils.checkpoint import load_pytree
 
-H100_FP32_FLOPS = 67e12      # FP32 non-tensor peak, H100 SXM at 700 W
-H100_HBM_BYTES = 3.35e12     # HBM3 bytes/s, H100 SXM
 OPS_PER_TEST = 54            # FP32 ops per ray x triangle test (cluster_sweep.cu)
 # The bounds count the operations each function needs, not those its kernel
 # happens to issue.  Plane form, per ray x slot: Q, Bu, Bv read d only (3
@@ -252,21 +251,17 @@ def event_ms(fn, reps):
 
 
 def device_profile(smi, label, fn, top=12):
-    """Profile one call: wall ms (host clock, profiler on), the summed device
-    time of its CUDA kernels, and the kernels taking the most of it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, wall = sync_time(fn)
-    # device events of the kernels; a named stage (record_function, e.g.
-    # Renderer.step's "render_step") also shows as a device range and is
-    # left out
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and not e.is_user_annotation),
+    """Profile one call as the benchmark traces a stretch
+    (``perfbench.trace.stretch``: CUDA activity only, a named stage's range
+    left out): wall ms (host clock, profiler on), the summed device time of
+    its device operations, and the operations taking the most of it."""
+    s = trace.stretch(lambda units: fn(), 1, torch.device("cuda"))
+    wall = s.wall_s
+    by_name = {}
+    for name, _, ns in s.ops:
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + ns / 1e6, n + 1)
+    rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
                   key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     if not rows:
@@ -304,15 +299,6 @@ def walk_bytes(mesh, touched, *io):
             + tris * t.tris[0].nbytes)
 
 
-def bound(ops, nb):
-    """(bound ms, what bounds it) for ``ops`` FP32 operations and ``nb``
-    bytes moved, at the H100's published peaks."""
-    ops_ms = ops / H100_FP32_FLOPS * 1e3
-    bytes_ms = nb / H100_HBM_BYTES * 1e3
-    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms \
-        else "bytes"
-
-
 def serve(scene, mats, cfg, frame_fn):
     """4 progressive frames through ``frame_fn`` (None: dispatch "auto") ->
     (image, ms per frame, peak GiB)."""
@@ -344,20 +330,20 @@ def sweep_wrappers(cfg, scene, mats, frame):
     transport through ``sweep.make_intersect_fn`` bit for bit (``frame``
     is that frame, rendered so)."""
     H, W = cfg.height, cfg.width
-    cluster.cluster_sweep_kernel.launches = 0
+    reset_counts()
     with torch.no_grad():
         rows = sweep.render_rows(scene, mats, cfg, 5, 0, H)
-    n = cluster.cluster_sweep_kernel.launches
+    n = read_counts()["B1"]
     check(n == cfg.max_bounces + 1 and torch.equal(rows, frame),
           f"sweep.render_rows of the {W}^2 frame launched B1 {n} times and "
           "equals golden.render_rows through make_intersect_fn bit for bit")
     d = primary_ray_directions(mats, W, H).reshape(-1, 3)
     o = mats.position.expand_as(d)
     seed = rng.pixel_seed(torch.arange(H * W, device=d.device), 5)
-    cluster.cluster_sweep_kernel.launches = 0
+    reset_counts()
     with torch.no_grad():
         light, out = sweep.trace_rays(scene, o, d, seed, cfg)
-        n = cluster.cluster_sweep_kernel.launches
+        n = read_counts()["B1"]
         want, want_seed = golden.trace_rays(
             scene, o, d, seed, cfg, sweep.make_intersect_fn(scene, cfg))
     check(n == cfg.max_bounces + 1 and torch.equal(light, want)
@@ -371,11 +357,11 @@ def pallas_rows(cfg, scene, mats):
     """``wavefront.render_rows_pallas`` of frame 5 launches B3 once per
     bounce and equals ``golden.render_rows`` through
     ``make_intersect_fn_pallas`` bit for bit."""
-    traversal.bvh_walk_kernel.launches = 0
+    reset_counts()
     with torch.no_grad():
         rows = wavefront.render_rows_pallas(scene, mats, cfg, 5, 0,
                                             cfg.height)
-        n = traversal.bvh_walk_kernel.launches
+        n = read_counts()["B3"]
         want = golden.render_rows(
             scene, mats, cfg, 5, 0, cfg.height,
             intersect_fn=wavefront.make_intersect_fn_pallas(scene))
@@ -599,7 +585,8 @@ def shade_cell(smi, label, scene, mats, cfg):
         ms = event_ms(fused, 20)
         plain_ms = event_ms(plain, 3)
         nb = shade_bytes(s, rec, materials)
-        bound_ms, bound_by = bound(0, nb)
+        bound_s, bound_by = peaks.bound(0, nb)
+        bound_ms = bound_s * 1e3
         per_segment.append(dict(
             segment=b, lanes=n, alive=int(s.alive.sum()),
             hit=int((s.alive & rec.hit).sum()), bitwise=not differ,
@@ -725,20 +712,6 @@ def brute_phase(smi, cscene, cmats, ccfg):
         card=smi)
 
 
-def walk_layouts():
-    """The B3 builds timed against each other: {name: traversal.WalkLayout};
-    "grid local" (one thread per ray in blockIdx order, the stack in local
-    memory) is the baseline, the shipped layout one of the others."""
-    base = traversal.walk_layout()
-    out = {f"{sched} {'smem' if shared else 'local'}": traversal.WalkLayout(
-        schedule=sched, shared_stack=shared)
-        for sched in traversal.SCHEDULES for shared in (False, True)}
-    out.update({"top 6": dataclasses.replace(base, top_levels=6),
-                "top 8": dataclasses.replace(base, top_levels=8),
-                "reorder": dataclasses.replace(base, reorder=True)})
-    return out
-
-
 def walk_expected(twin, t0, alive):
     """The twin's (t, off, counts) over every lane, as a walk of only the
     lanes of ``alive`` must give them (dead lanes: t_init, -1, 0)."""
@@ -749,28 +722,19 @@ def walk_expected(twin, t0, alive):
             torch.where(alive[:, None], cp, 0))
 
 
-def walk_same(query, mesh, twin, layouts):
+def walk_same(query, mesh, twin):
     """B3 against its twin, bitwise in t, off and the counters, on every
-    lane and on the live lanes only, under each layout of ``layouts``
-    ({name: WalkLayout}) -> {name: bool}."""
+    lane and on the live lanes only -> whether both equal it."""
     o, d, t0, alive = query
-    chosen, out = traversal.walk_layout, {}
-    try:
-        for name, lay in layouts.items():
-            traversal.walk_layout = lambda lay=lay: lay
-            same = True
-            for mask in (None, alive):
-                ck = torch.full_like(twin[2], 7)
-                tk, ok = traversal.bvh_walk_kernel(o, d, t0, mesh, ck,
-                                                   alive=mask)
-                torch.cuda.synchronize()
-                want = walk_expected(twin, t0, mask)
-                same = same and all(torch.equal(a, b) for a, b in
-                                    zip((tk, ok, ck), want))
-            out[name] = same
-    finally:
-        traversal.walk_layout = chosen
-    return out
+    same = True
+    for mask in (None, alive):
+        ck = torch.full_like(twin[2], 7)
+        tk, ok = traversal.bvh_walk_kernel(o, d, t0, mesh, ck, alive=mask)
+        torch.cuda.synchronize()
+        want = walk_expected(twin, t0, mask)
+        same = same and all(torch.equal(a, b) for a, b in
+                            zip((tk, ok, ck), want))
+    return same
 
 
 def walk_twin(query, mesh, masked=False):
@@ -795,10 +759,10 @@ def walk_twin(query, mesh, masked=False):
 
 def pallas_phase(smi, cfg, unsplit, ptxas):
     """The "pallas" path: the kernel's tables, capture (with the transport's
-    alive masks), parity under every layout with and without the masks (the
-    five queries, the unsplit bunny ``unsplit``, seeded tie-heavy and
-    signed-zero banks), times per layout, serving, frames.  Returns the
-    kernel's JSON entry and the split scene."""
+    alive masks), parity with and without the masks (the five queries, the
+    unsplit bunny ``unsplit``, seeded tie-heavy and signed-zero banks),
+    times, serving, frames.  Returns the kernel's JSON entry and the split
+    scene."""
     scene, cam = bunny_gltf_scene(
         max_blas_tris=dispatch.PALLAS_MAX_TRIS, device="cuda")
     mats = camera_matrices(cam, 1.0)
@@ -826,12 +790,10 @@ def pallas_phase(smi, cfg, unsplit, ptxas):
           f"one frame makes {cfg.max_bounces + 1} BVH-walk queries, each "
           "with the transport's alive mask")
     R = queries[0][0].shape[0]
-    layouts = walk_layouts()
     print(f"[pallas] {nd} draws, {m.bvh_left.shape[0]} node slots, tree "
-          f"depth {tables.depth}, {R} rays per query; layout "
-          f"{traversal.walk_layout()}", flush=True)
+          f"depth {tables.depth}, {R} rays per query", flush=True)
 
-    parity, per_query, layouts_same = [], [], True
+    parity, per_query = [], []
     for q, query in enumerate(queries):
         o, d, t0, alive = query
         twin, plain, touched = walk_twin(query, m)
@@ -839,37 +801,28 @@ def pallas_phase(smi, cfg, unsplit, ptxas):
         ck = torch.zeros_like(cp)
         tk, ok = traversal.bvh_walk_kernel(o, d, t0, m, ck)
         torch.cuda.synchronize()
-        same = walk_same(query, m, twin, layouts)
-        layouts_same = layouts_same and all(same.values())
+        same = walk_same(query, m, twin)
         live = int(alive.sum())
         rec = dict(query=q, bitwise=bool(torch.equal(tk, tp)
                                          and torch.equal(ok, op)),
                    counts_equal=bool(torch.equal(ck, cp)),
                    max_abs_err=float((tk - tp).abs().max()),
-                   bitwise_every_layout_with_and_without_mask=same,
+                   bitwise_with_and_without_mask=same,
                    hits=int((op >= 0).sum()), live=live)
         parity.append(rec)
         print(f"[parity] pallas query {q}: {json.dumps(rec)}", flush=True)
-        check(rec["bitwise"] and rec["counts_equal"] and all(same.values()),
+        check(rec["bitwise"] and rec["counts_equal"] and same,
               f"pallas query {q}: t, off and counters equal the twin's bit "
-              "for bit under every layout, on every lane and on the "
-              f"{live} live lanes")
+              f"for bit, on every lane and on the {live} live lanes")
         pops, inner, tests = (int(x) for x in cp.long().sum(0))
         ops = (R * nd * OPS_PER_SLAB + pops * OPS_PER_POP
                + inner * OPS_PER_INNER + tests * OPS_PER_TEST)
         nb = walk_bytes(m, touched, o, d, t0, tk, ok)
-        bound_ms, bound_by = bound(ops, nb)
+        bound_s, bound_by = peaks.bound(ops, nb)
+        bound_ms = bound_s * 1e3
         ms = event_ms(lambda: traversal.bvh_walk_kernel(o, d, t0, m), 20)
         ms_live = event_ms(lambda: traversal.bvh_walk_kernel(
             o, d, t0, m, alive=alive), 20)
-        chosen, lay_ms = traversal.walk_layout, {}
-        try:
-            for name, lay in layouts.items():
-                traversal.walk_layout = lambda lay=lay: lay
-                lay_ms[name] = event_ms(
-                    lambda: traversal.bvh_walk_kernel(o, d, t0, m), 20)
-        finally:
-            traversal.walk_layout = chosen
         torch.cuda.synchronize()
         t_host = time.perf_counter()
         for _ in range(20):
@@ -880,7 +833,7 @@ def pallas_phase(smi, cfg, unsplit, ptxas):
                               bound_ms=bound_ms, bound_by=bound_by,
                               nodes_popped=pops, inner_entered=inner,
                               tris_tested=tests, bytes=nb, live_share=live / R,
-                              layouts_ms=lay_ms, host_enqueue_ms=host_ms))
+                              host_enqueue_ms=host_ms))
         print(f"[kernel] bvh_walk query {q}: {ms:.4f} ms all lanes, "
               f"{ms_live:.4f} ms live lanes only ({live / R:.4f} live), "
               f"plain {plain:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
@@ -888,16 +841,6 @@ def pallas_phase(smi, cfg, unsplit, ptxas):
               f"{inner / R:.2f} inner entered, {tests / R:.2f} triangles "
               f"tested per ray; host enqueue {host_ms:.4f} ms per call, on "
               f"{smi}", flush=True)
-        print(f"[layouts] bvh_walk query {q}: " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in lay_ms.items()) + f", on {smi}",
-            flush=True)
-    check(layouts_same, "every B3 layout gives the twin's t, off and "
-          "counters on every query, with and without the alive mask")
-    means = {k: sum(r["layouts_ms"][k] for r in per_query) / len(per_query)
-             for k in layouts}
-    print("[layouts] bvh_walk mean: " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in means.items()) + f", on {smi}",
-        flush=True)
 
     # the same gate on the unsplit bunny (one draw) and on seeded banks
     # built to tie and to pass exact zeros through the slab test
@@ -913,21 +856,20 @@ def pallas_phase(smi, cfg, unsplit, ptxas):
         cases.append((label, (o, d, t0, alive), mesh))
     for label, query, mesh in cases:
         twin = walk_twin(query, mesh)[0]
-        same = walk_same(query, mesh, twin, layouts)
-        extra[label] = dict(bitwise_every_layout_with_and_without_mask=same,
+        same = walk_same(query, mesh, twin)
+        extra[label] = dict(bitwise_with_and_without_mask=same,
                             hits=int((twin[1] >= 0).sum()),
                             rays=query[0].shape[0],
                             live=int(query[3].sum()),
                             tree_depth=traversal.walk_tables(mesh).depth)
         print(f"[parity] pallas {label}: {json.dumps(extra[label])}",
               flush=True)
-        check(all(same.values()), f"pallas {label}: t, off and counters "
-              "equal the twin's bit for bit under every layout, with and "
-              "without the alive mask")
+        check(same, f"pallas {label}: t, off and counters equal the twin's "
+              "bit for bit, with and without the alive mask")
 
-    traversal.bvh_walk_kernel.launches = 0
+    reset_counts()
     image, frame_ms, peak = serve(scene, mats, cfg, frame_fn)
-    launches = traversal.bvh_walk_kernel.launches
+    launches = read_counts()["B3"]
     check(launches == 4 * (cfg.max_bounces + 1),
           f"4 'pallas' frames launched the BVH-walk kernel {launches} times")
     check_image(image, "pallas bunny")
@@ -978,8 +920,7 @@ def pallas_phase(smi, cfg, unsplit, ptxas):
         ms_note="mean per launch over one 512^2 'pallas' frame's 5 queries, "
                 "every lane walked",
         ms_live=sum(r["ms_live"] for r in per_query) / len(per_query),
-        layout=dataclasses.asdict(traversal.walk_layout()),
-        layouts_mean_ms=means, tables_build_s=tables.build_s,
+        tables_build_s=tables.build_s,
         tables_first_walk_s=tables_s, ptxas=ptxas,
         parity=parity, parity_extra=extra, per_query=per_query, card=smi,
         frame_ms=frame_ms,
@@ -1050,7 +991,8 @@ def mxu_phase(smi, scene, mats, cfg):
               "where both hit")
         visits = int(vk.sum())
         ops = visits * B * cluster.CLUSTER_TRIS * OPS_PER_PLANE_TEST
-        bound_ms, bound_by = bound(ops, nbytes(*args) + nbytes(args[4]))
+        bound_s, bound_by = peaks.bound(ops, nbytes(*args) + nbytes(args[4]))
+        bound_ms = bound_s * 1e3
         ms = event_ms(lambda: kernel(*args), 20)
         plain = event_ms(lambda: plain_fn(*args), 1)
         per_visit, pole = long_pole(args, vk, mxu=True)
@@ -1078,12 +1020,11 @@ def mxu_phase(smi, scene, mats, cfg):
     check(layouts_same, "every B2 layout gives the twin's payload and visits "
           "on every query")
 
-    cluster.cluster_sweep_mxu_kernel.launches = 0
-    cluster.cluster_sweep_kernel.launches = 0
+    reset_counts()
     image, frame_ms, peak = serve(scene, mats, cfg, sweep.render_frame)
-    launches = cluster.cluster_sweep_mxu_kernel.launches
-    check(launches == 4 * (cfg.max_bounces + 1)
-          and cluster.cluster_sweep_kernel.launches == 0,
+    counts = read_counts()
+    launches = counts["B2"]
+    check(launches == 4 * (cfg.max_bounces + 1) and counts["B1"] == 0,
           f"4 mxu frames launched the plane-form kernel {launches} times "
           "and the MT kernel none")
     check_image(image, "mxu bunny")
@@ -1187,7 +1128,7 @@ def train_cell(smi, label, scene, mats, cfg, renderer, per_step):
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     finite, norm = grad_stats(grads)
-    want = {k: 4 * per_step.get(k, 0) for k in KERNELS}
+    want = zeros(**{k: 4 * n for k, n in per_step.items()})
     check(counts == want, f"[train] {label}: 4 steps launched {counts} "
           f"(expected {want})")
     check(finite and norm > 0.0, f"[train] {label}: every grad leaf is "
@@ -1239,7 +1180,8 @@ def sweep_shadow_queries(smi, scene, mats, cfg):
               "twin's bit for bit")
         ops = rec["visits"] * B * cluster.CLUSTER_TRIS * (
             OPS_PER_PLANE_TEST if mxu else OPS_PER_TEST)
-        bound_ms, bound_by = bound(ops, nbytes(*args) + nbytes(args[4]))
+        bound_s, bound_by = peaks.bound(ops, nbytes(*args) + nbytes(args[4]))
+        bound_ms = bound_s * 1e3
         ms = event_ms(lambda: kernel(*args), 20)
         lanes_on = args[3][..., 6] > 0.0
         active = float(lanes_on.float().mean())
@@ -1295,7 +1237,8 @@ def walk_shadow_queries(smi, scene, mats, cfg):
         ops = (live * nd * OPS_PER_SLAB + pops * OPS_PER_POP
                + inner * OPS_PER_INNER + tests * OPS_PER_TEST)
         nb = walk_bytes(m, touched, o, d, t0, alive, tk, ok)
-        bound_ms, bound_by = bound(ops, nb)
+        bound_s, bound_by = peaks.bound(ops, nb)
+        bound_ms = bound_s * 1e3
         ms = event_ms(lambda: traversal.bvh_walk_kernel(o, d, t0, m,
                                                         alive=alive), 20)
         rec = dict(query=q, bitwise=same, ms=ms, bound_ms=bound_ms,
@@ -1492,7 +1435,7 @@ def vertex_steps(smi, lit, cam):
             trainable=("albedo", "vertices"), learning_rate=1e-3, steps=3,
             vary_seed=True, log_every=1), renderer="auto")
     counts = read_counts()
-    check(counts == {"B1": 30, "B2": 0, "B3": 0, "T1": 0, "H1": 0},
+    check(counts == zeros(B1=30),
           f"[inverse] 3 lit-bunny steps launched {counts} (B1: 10 per step)")
     moved = float((out.mesh.vertices - lit.mesh.vertices).abs().max())
     check(moved > 0.0 and all(math.isfinite(h["grad_norm"]) for h in hist),
@@ -1600,7 +1543,8 @@ def edge_query(smi, scene, mats, cfg):
     args = seen["args"]
     B = args[3].shape[1]
     ops = rec["visits"] * B * cluster.CLUSTER_TRIS * OPS_PER_TEST
-    bound_ms, bound_by = bound(ops, nbytes(*args) + nbytes(args[4]))
+    bound_s, bound_by = peaks.bound(ops, nbytes(*args) + nbytes(args[4]))
+    bound_ms = bound_s * 1e3
     ms = event_ms(lambda: cluster.cluster_sweep_kernel(*args), 20)
     plain = event_ms(lambda: cluster.cluster_sweep_plain(*args), 1)
     rec.update(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
@@ -1639,7 +1583,7 @@ def edge_cell(smi, label, scene, cam, cfg, per_step):
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     finite, norm = grad_stats(grads)
-    want = {k: 4 * per_step.get(k, 0) for k in KERNELS}
+    want = zeros(**{k: 4 * n for k, n in per_step.items()})
     check(counts == want, f"[edge] {label}: 4 steps launched {counts} "
           f"(expected {want})")
     check(finite and norm > 0.0, f"[edge] {label}: the grads of "
@@ -1714,8 +1658,7 @@ def edge_vertex_steps(smi, lit, cam):
             trainable=("vertices",), learning_rate=1e-3, steps=3,
             vary_seed=False, log_every=1), renderer="auto")
     counts = read_counts()
-    check(counts == {"B1": 3 * EDGE_LIT_B1, "B2": 0, "B3": 0, "T1": 0,
-                     "H1": 0},
+    check(counts == zeros(B1=3 * EDGE_LIT_B1),
           f"[edge] 3 lit-bunny vertex steps launched {counts} (B1: "
           f"{EDGE_LIT_B1} per step)")
     losses = [h["loss"] for h in hist]
@@ -1844,8 +1787,7 @@ def compact_phase(smi, scene, mats):
           "[compact] the brute-force compacted full_bsdf frame equals the "
           "plain frame bit for bit")
     b1 = out["bunny 512^2 rr from bounce 1 (B1)"]
-    check(all(b1[k]["launches"] == {"B1": 15, "B2": 0, "B3": 0, "T1": 15,
-                                    "H1": 0}
+    check(all(b1[k]["launches"] == zeros(B1=15, T1=15)
               for k in ("off", "on")),
           "[compact] 3 RR bunny frames launched B1 and T1 15 times each with "
           "compaction off and on")
@@ -1875,8 +1817,7 @@ def serve_phase(smi, scene, cam, cscene, ccam):
         _, s = sync_time(lambda: r.step(1))
         times.append(s * 1e3)
     counts = read_counts()
-    check(counts == {"B1": 5 * SERVE_FRAMES, "B2": 0, "B3": 0,
-                     "T1": 5 * SERVE_FRAMES, "H1": 0},
+    check(counts == zeros(B1=5 * SERVE_FRAMES, T1=5 * SERVE_FRAMES),
           f"[serve] {SERVE_FRAMES} Renderer steps launched {counts} (B1 5 "
           "per frame)")
     check(r.frame_count == SERVE_FRAMES and torch.equal(r.image, want),
@@ -1944,8 +1885,7 @@ def serve_phase(smi, scene, cam, cscene, ccam):
     reset_counts()
     _, s = sync_time(lambda: rc.step(3))
     ccounts = read_counts()
-    check(ccounts == {"B1": 0, "B2": 0, "B3": 0, "T1": 15, "H1": 15}
-          and rc.frame_count == 4,
+    check(ccounts == zeros(T1=15, H1=15) and rc.frame_count == 4,
           "[serve] Cornell 1024^2 Renderer steps launch no sweep or walk "
           "(brute force), H1 and T1 5 times a step")
     check(bool(torch.isfinite(rc.image).all())
@@ -1997,10 +1937,8 @@ def cli_phase(smi, kind):
     Cornell box; ``info`` -> its JSON record."""
     bunny = ["--gltf", BUNNY_GLB, "--width", "512", "--height", "512",
              "--bloom"]
-    b1 = {"cluster_sweep": 5, "cluster_sweep_mxu": 0, "bvh_walk": 0,
-          "shade_segment": 5, "brute_hit": 0}
-    b3 = {"cluster_sweep": 0, "cluster_sweep_mxu": 0, "bvh_walk": 5,
-          "shade_segment": 5, "brute_hit": 0}
+    b1 = named(zeros(B1=5, T1=5))
+    b3 = named(zeros(B3=5, T1=5))
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         p = functools.partial(os.path.join, tmp)
@@ -2233,8 +2171,7 @@ def scene_cli(smi, obj, tmp):
     p = functools.partial(os.path.join, tmp)
     args = ["render", "--obj", obj, "--width", "512", "--height", "512",
             "--bounces", "4", "--frames", str(SCENE_FRAMES)]
-    zero = {"cluster_sweep": 0, "cluster_sweep_mxu": 0, "bvh_walk": 0,
-            "shade_segment": 5, "brute_hit": 0}
+    zero = named(zeros(T1=5))
     out = {}
     for path, kernel in (("auto", "cluster_sweep"), ("pallas", "bvh_walk")):
         _, err, s = run_cli([*args, "--renderer", path, "--metrics",
@@ -2283,8 +2220,7 @@ def scene_frame(smi, scene, mats, cfg, path, tag):
             scene, mats, cfg, 0, None, frame_fn=frame_fn))
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check(counts == dict({"B1": 0, "B2": 0, "B3": 0, "T1": 5, "H1": 0},
-                         **{tag: 5}),
+    check(counts == zeros(T1=5, **{tag: 5}),
           f"[scene] one in-process '{path}' frame launched {counts}")
     check_image(image, f"[scene] in-process '{path}'")
     print(f"[scene] in-process '{path}' frame 0 (the first on this scene): "
@@ -2327,7 +2263,8 @@ def scene_sweep(smi, scene, mats, cfg):
     plain = event_ms(lambda: cluster.cluster_sweep_plain(*args), 1)
     query_ms = event_ms(lambda: cluster.cluster_sweep(o, d, t0, *tables), 5)
     ops = int(visits.sum()) * B * cluster.CLUSTER_TRIS * OPS_PER_TEST
-    bound_ms, bound_by = bound(ops, nbytes(*args) + nbytes(args[4]))
+    bound_s, bound_by = peaks.bound(ops, nbytes(*args) + nbytes(args[4]))
+    bound_ms = bound_s * 1e3
     sweep.make_intersect_fn(scene, cfg)
     _, s = sync_time(lambda: [sweep.make_intersect_fn(scene, cfg)
                               for _ in range(3)])
@@ -2353,9 +2290,9 @@ def scene_sweep(smi, scene, mats, cfg):
 
 def walk_query(smi, tag, what, scene, mats, cfg):
     """B3 on ``scene``'s primary query, however many draws it has: bit for
-    bit with its twin under every layout, on every lane and the live lanes
-    (``walk_twin``, ``walk_same``), ms per launch against its bound ->
-    (record, the walk tables)."""
+    bit with its twin on every lane and the live lanes (``walk_twin``,
+    ``walk_same``), ms per launch against its bound -> (record, the walk
+    tables)."""
     m = scene.mesh
     nd = int(m.draw_count)
     queries = []
@@ -2373,11 +2310,10 @@ def walk_query(smi, tag, what, scene, mats, cfg):
     o, d, t0, alive = query
     R = o.shape[0]
     twin, plain, touched = walk_twin(query, m)
-    same = walk_same(query, m, twin, walk_layouts())
+    same = walk_same(query, m, twin)
     tp, op, cp = twin
-    check(all(same.values()), f"{tag} B3 on {what}, primary query: t, off "
-          "and counters equal the twin's bit for bit under every layout, on "
-          "every lane and the live lanes")
+    check(same, f"{tag} B3 on {what}, primary query: t, off and counters "
+          "equal the twin's bit for bit, on every lane and the live lanes")
     tk, ok = traversal.bvh_walk_kernel(o, d, t0, m)
     ms = event_ms(lambda: traversal.bvh_walk_kernel(o, d, t0, m), 20)
     ms_live = event_ms(lambda: traversal.bvh_walk_kernel(
@@ -2386,11 +2322,12 @@ def walk_query(smi, tag, what, scene, mats, cfg):
     ops = (R * nd * OPS_PER_SLAB + pops * OPS_PER_POP
            + inner * OPS_PER_INNER + tests * OPS_PER_TEST)
     nb = walk_bytes(m, touched, o, d, t0, tk, ok)
-    bound_ms, bound_by = bound(ops, nb)
+    bound_s, bound_by = peaks.bound(ops, nb)
+    bound_ms = bound_s * 1e3
     out = dict(ms=ms, ms_live=ms_live, plain_ms=plain, bound_ms=bound_ms,
                bound_by=bound_by, bytes=nb,
                max_abs_err=float((tk - tp).abs().max()),
-               bitwise_every_layout_with_and_without_mask=same,
+               bitwise_with_and_without_mask=same,
                hits=int((op >= 0).sum()), live=int(alive.sum()),
                nodes_popped=pops, inner_entered=inner, tris_tested=tests,
                node_records_read=int(touched[0].sum()),
@@ -2398,11 +2335,9 @@ def walk_query(smi, tag, what, scene, mats, cfg):
                node_records=tables.nodes.shape[0],
                tri_records=tables.tris.shape[0],
                draws=nd, tree_depth=tables.depth,
-               top_records=tables.top_records, tables_build_s=tables.build_s)
+               tables_build_s=tables.build_s)
     print(f"{tag} B3 primary query, {what}, {nd} draws, depth "
-          f"{tables.depth}, top 8 levels {tables.top_records[8]} records "
-          f"(staged: at most {traversal.STAGE_RECORDS}): {ms:.4f} ms all "
-          f"lanes, {ms_live:.4f} ms "
+          f"{tables.depth}: {ms:.4f} ms all lanes, {ms_live:.4f} ms "
           f"live lanes, plain {plain:.1f} ms, bound {bound_ms:.4f} ms "
           f"({bound_by}, {nb / 1e6:.2f} MB), {ms / bound_ms:.1f}x; "
           f"{pops / R:.2f} nodes popped per ray; {inner} inner nodes "
@@ -2415,15 +2350,13 @@ def walk_query(smi, tag, what, scene, mats, cfg):
 
 
 def scene_walk(smi, scene, mats, cfg):
-    """(d) B3 on the large scene's primary query, one draw whose top 8
-    levels fit the kernel's staging -> ``walk_query``'s record."""
+    """(d) B3 on the large scene's primary query, one draw ->
+    ``walk_query``'s record."""
     out, tables = walk_query(smi, "[scene]", f"the {SCENE_TRIS}-triangle "
                              "OBJ", scene, mats, cfg)
-    check(out["draws"] == 1 and tables.depth <= traversal.STACK_DEPTH
-          and tables.top_records[8] <= traversal.STAGE_RECORDS,
+    check(out["draws"] == 1 and tables.depth <= traversal.STACK_DEPTH,
           f"[scene] one draw, tree depth {tables.depth} <= "
-          f"{traversal.STACK_DEPTH} stack slots, top 8 levels "
-          f"{tables.top_records[8]} records <= {traversal.STAGE_RECORDS}")
+          f"{traversal.STACK_DEPTH} stack slots")
     return out
 
 
@@ -2606,8 +2539,7 @@ def bench_run(smi, label, args):
     box = 0 if a.scene == "bunny" else a.bounces + 1
     searched = {"headline": box, "bvh_row": 0, "bsdf_row": 9,
                 "scaling_efficiency_8": box}
-    zero = {"cluster_sweep": 0, "cluster_sweep_mxu": 0, "bvh_walk": 0,
-            "shade_segment": 0, "brute_hit": 0}
+    zero = named(zeros())
     check(set(launches) == set(want) and all(
         launches[row]["per_step"] == dict(zero, **(
             {k: 5} if k else {}), **(
@@ -2831,8 +2763,8 @@ def main() -> int:
         for line in log.splitlines():
             if "ptxas" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    for name in build.SIGNATURES:
-        build.load(name)
+    for tag in KERNELS:
+        library(tag)
     check(native.available(), "every BVH of this run is built by "
           f"the native host library: {native.status()}")
 
@@ -2911,9 +2843,9 @@ def main() -> int:
           "kernel equals sweep_reference except on exact t-ties")
 
     # -- 4. the serving path: 4 progressive frames through dispatch auto --
-    cluster.cluster_sweep_kernel.launches = 0
+    reset_counts()
     image, frame_ms, peak_gib = serve(scene, mats, cfg, None)
-    launches = cluster.cluster_sweep_kernel.launches
+    launches = read_counts()["B1"]
     check(launches == 4 * (cfg.max_bounces + 1),
           f"4 frames launched the cluster-sweep kernel {launches} times")
     check_image(image, "bunny")
@@ -2989,7 +2921,8 @@ def main() -> int:
         ms = event_ms(lambda: cluster.cluster_sweep_kernel(*args), 20)
         plain = event_ms(lambda: cluster.cluster_sweep_plain(*args), 2)
         ops = int(visits.sum()) * B * cluster.CLUSTER_TRIS * OPS_PER_TEST
-        bound_ms, bound_by = bound(ops, nbytes(*args) + nbytes(args[4]))
+        bound_s, bound_by = peaks.bound(ops, nbytes(*args) + nbytes(args[4]))
+        bound_ms = bound_s * 1e3
         per_visit, pole = long_pole(args, visits)
         layouts, same = layout_ms(args, want, visits)
         layouts_same = layouts_same and same

@@ -11,14 +11,13 @@ handed.  Frames are 16 x 16, queries at most 4,096 lanes.
 """
 
 import dataclasses
-import re
 import types
 
 import pytest
 import torch
 
 from wc_path_tracer_tpu_torch import RenderConfig
-from wc_path_tracer_tpu_torch.kernels import brute, build, launches
+from wc_path_tracer_tpu_torch.kernels import brute
 from wc_path_tracer_tpu_torch.models import builtin
 from wc_path_tracer_tpu_torch.models.procedural import bunny_like_scene
 from wc_path_tracer_tpu_torch.ops import intersect as ix
@@ -195,6 +194,7 @@ def test_renderer_frames_take_the_kernel(name, monkeypatch):
         r.step(1)
     assert torch.equal(r.image, plain.image)
     assert len(calls) == 2 * (cfg.max_bounces + 1)
+    assert "brute.lanes" in profiling.COUNTERS
     assert counts.pop("brute.lanes") == counts["intersect.lanes"] \
         == sum(calls[cfg.max_bounces + 1:])
     assert counts == plain_counts
@@ -218,23 +218,6 @@ def test_the_sweep_never_calls_the_kernel(monkeypatch):
     assert calls == [] and counts.get("brute.lanes", 0) == 0
     assert counts["intersect.lanes"] > 0
     assert torch.equal(r.image, plain.image)
-
-
-def test_h1_is_counted_and_named_apart_from_the_roofline_kernels():
-    """H1 is in the launch map and ``build.SIGNATURES`` (whose sources
-    ``test_torch_shade.py`` holds against their C signatures); its one
-    kernel's name holds none of the names a per-layer metric matches."""
-    assert launches.KERNELS["H1"] is brute.brute_hit_kernel
-    assert launches.NAMES["H1"] == "brute_hit"
-    assert "brute_hit" in build.SIGNATURES
-    assert "H1" in launches.read_counts()
-    src = build.source("brute_hit").read_text()
-    kernels = re.findall(r"__global__ void (?:__launch_bounds__\(\w+\) )?"
-                         r"(\w+)\(", src)
-    assert kernels == ["brute_hit"]
-    assert not any(k in kernels[0] for k in ("sweep_kernel", "bvh_walk_kernel",
-                                             "shade_segment"))
-    assert "brute.lanes" in profiling.COUNTERS
 
 
 def test_kernel_entry_refuses_cpu_tensors():

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from wc_path_tracer_tpu.kernels import cluster as jcluster
 from wc_path_tracer_tpu.models.procedural import bunny_like_scene as j_bunny
 
-from wc_path_tracer_tpu_torch.kernels import cluster
+from wc_path_tracer_tpu_torch.kernels import cluster, launches
 from wc_path_tracer_tpu_torch.models.procedural import (bunny_like_scene,
                                                          signed_zero_query,
                                                          tie_heavy_query)
@@ -223,10 +223,10 @@ def test_signed_zero_twin_equals_jax_kernel():
 
 
 def test_kernel_wrapper_runs_the_twin_on_cpu(case):
-    before = cluster.cluster_sweep_kernel.launches
+    before = launches.read_counts()["B1"]
     o, d, t0 = (_t(case[k][:600]) for k in ("o", "d", "t_init"))
     got = cluster.cluster_sweep(o, d, t0, *case["tt"])
     want = cluster.cluster_sweep(o, d, t0, *case["tt"],
                                  block_fn=cluster.cluster_sweep_plain)
     assert torch.equal(got, want)
-    assert cluster.cluster_sweep_kernel.launches == before
+    assert launches.read_counts()["B1"] == before

@@ -16,8 +16,8 @@ import pytest
 import torch
 
 from wc_path_tracer_tpu_torch import RenderConfig
-from wc_path_tracer_tpu_torch.kernels import (brute, cluster, shade,
-                                              traversal)
+from wc_path_tracer_tpu_torch.kernels import (brute, cluster, launches,
+                                              shade, traversal)
 from wc_path_tracer_tpu_torch.models import builtin
 from wc_path_tracer_tpu_torch.models.procedural import (bumpy_sphere,
                                                          bunny_gltf_scene,
@@ -75,12 +75,13 @@ def _sweep_both(o, d, t0, tables, ray_block):
         seen.update(k=kernel(*args, vk), p=plain(*args, vp), vk=vk, vp=vp)
         return seen["k"]
 
-    before = kernel.launches
+    tag = "B2" if mxu else "B1"
+    before = launches.read_counts()[tag]
     kw = dict(variant="mxu", mat_tbl=tables[3]) if mxu else {}
     cluster.cluster_sweep(o, d, t0, *tables[:3], ray_block=ray_block,
                           block_fn=both, **kw)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert launches.read_counts()[tag] == before + 1
     return seen["k"], seen["p"], seen["vk"], seen["vp"]
 
 
@@ -176,11 +177,11 @@ def test_mxu_kernel_matches_plain_twin(ray_block):
         seen.update(k=k, p=p, vk=vk, vp=vp)
         return k
 
-    before = cluster.cluster_sweep_mxu_kernel.launches
+    before = launches.read_counts()["B2"]
     cluster.cluster_sweep(o, d, t0, tw, cmin, cmax, ray_block=ray_block,
                           block_fn=both, variant="mxu", mat_tbl=mat)
     torch.cuda.synchronize()
-    assert cluster.cluster_sweep_mxu_kernel.launches == before + 1
+    assert launches.read_counts()["B2"] == before + 1
     assert torch.equal(seen["k"], seen["p"])
     assert torch.equal(seen["vk"], seen["vp"])
     assert int((seen["k"][..., 11] >= 0).sum()) > 500
@@ -285,11 +286,11 @@ def test_bvh_walk_kernel_matches_plain_walk():
     ck = torch.zeros((3000, traversal.COUNT_COLS), dtype=torch.int32,
                      device="cuda")
     cp = torch.zeros_like(ck)
-    before = traversal.bvh_walk_kernel.launches
+    before = launches.read_counts()["B3"]
     tk, ok = traversal.bvh_walk_kernel(o, d, t0, scene.mesh, ck)
     tp, op = traversal.bvh_walk_plain(o, d, t0, scene.mesh, cp)
     torch.cuda.synchronize()
-    assert traversal.bvh_walk_kernel.launches == before + 1
+    assert launches.read_counts()["B3"] == before + 1
     assert torch.equal(ok, op) and torch.equal(tk, tp)
     assert torch.equal(ck, cp)
     assert int((ok >= 0).sum()) > 500
@@ -309,25 +310,6 @@ def test_bvh_walk_wrapper_rejects_bad_inputs():
         bvh_count=torch.zeros_like(scene.mesh.bvh_count))
     with pytest.raises(ValueError, match="more than 64 levels"):
         traversal.bvh_walk_kernel(o, d, t0, cyclic)
-
-
-# every build of the B3 layout table (PERF.md): one thread per ray in
-# blockIdx order or persistent warps (32-ray batches, or lanes refilled as
-# they idle), the stack in local or shared memory, the top 6 or 8 levels
-# staged in shared memory, rays reordered
-WALK_LAYOUTS = [
-    traversal.WalkLayout(schedule=sched, shared_stack=shared)
-    for sched in traversal.SCHEDULES for shared in (False, True)] + [
-    traversal.WalkLayout(top_levels=6),
-    traversal.WalkLayout(top_levels=8),
-    traversal.WalkLayout(reorder=True),
-]
-
-
-def _layout_id(lay):
-    return (lay.schedule + ("-smem" if lay.shared_stack else "-local")
-            + (f"-top{lay.top_levels}" if lay.top_levels else "")
-            + ("-reorder" if lay.reorder else ""))
 
 
 @functools.lru_cache(maxsize=None)
@@ -365,24 +347,22 @@ def _walk_case(case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("layout", WALK_LAYOUTS, ids=_layout_id)
 @pytest.mark.parametrize("case", ["split bunny", "unsplit bunny",
                                   "tie-heavy", "signed-zero"])
-def test_bvh_walk_layouts_match_plain_walk(case, layout, monkeypatch):
-    """Every build the kernel is timed in, on every lane and on the live
-    lanes only: (t, off) and the counters equal the twin's bit for bit; a
-    dead lane gives (t_init, -1) and zero counters."""
+def test_bvh_walk_layouts_match_plain_walk(case):
+    """The kernel's one layout, on every lane and on the live lanes only:
+    (t, off) and the counters equal the twin's bit for bit; a dead lane
+    gives (t_init, -1) and zero counters."""
     _need_card()
     mesh, queries, twins = _walk_case(case)
-    monkeypatch.setattr(traversal, "walk_layout", lambda: layout)
     hits = 0
     for (o, d, t0, alive), (tp, op, cp) in zip(queries, twins):
         for mask in (None, alive):
             ck = torch.full_like(cp, 7)
-            before = traversal.bvh_walk_kernel.launches
+            before = launches.read_counts()["B3"]
             tk, ok = traversal.bvh_walk_kernel(o, d, t0, mesh, ck, alive=mask)
             torch.cuda.synchronize()
-            assert traversal.bvh_walk_kernel.launches == before + 1
+            assert launches.read_counts()["B3"] == before + 1
             live = torch.ones_like(alive) if mask is None else mask
             assert torch.equal(tk, torch.where(live, tp, t0))
             assert torch.equal(ok, torch.where(live, op, -1))
@@ -430,10 +410,10 @@ def test_pallas_frame_alive_mask_keeps_the_image():
     def every_lane(scene, origin, direction, cfg):
         return wavefront.intersect_scene_pallas(scene, origin, direction, cfg)
 
-    before = traversal.bvh_walk_kernel.launches
+    before = launches.read_counts()["B3"]
     img_m = wavefront.render_frame_pallas(scene, mats, cfg, 2)
     img_a = golden.render_frame(scene, mats, cfg, 2, intersect_fn=every_lane)
-    assert traversal.bvh_walk_kernel.launches == before + 8
+    assert launches.read_counts()["B3"] == before + 8
     assert torch.isfinite(img_m).all()
     assert torch.equal(img_m, img_a)
 
@@ -567,12 +547,12 @@ def test_edge_query_kernel_matches_plain_twin(variant):
     torch.cuda.synchronize()
     assert torch.equal(seen["k"], seen["p"])
     assert torch.equal(seen["vk"], seen["vp"])
-    before = (cluster.cluster_sweep_kernel.launches,
-              cluster.cluster_sweep_mxu_kernel.launches)
+    before = (launches.read_counts()["B1"],
+              launches.read_counts()["B2"])
     fn = sweep.make_intersect_fn(scene, cfg)
     got = fn.edge_tri_fn(scene, origin, dirs, cfg, pix_ang)
-    assert (cluster.cluster_sweep_kernel.launches,
-            cluster.cluster_sweep_mxu_kernel.launches) == (before[0] + 1,
+    assert (launches.read_counts()["B1"],
+            launches.read_counts()["B2"]) == (before[0] + 1,
                                                            before[1])
     want = golden.tri_edge_candidate_brute(scene, origin, dirs, cfg, pix_ang)
     f = want["found"]
@@ -658,9 +638,9 @@ def test_renderer_step_on_card_equals_render_step():
     cfg = RenderConfig(width=64, height=64, max_bounces=2)
     r = Renderer(scene, cam, cfg)
     assert r.device.type == "cuda" and r.image.is_cuda
-    before = cluster.cluster_sweep_kernel.launches
+    before = launches.read_counts()["B1"]
     r.step(2)
-    assert cluster.cluster_sweep_kernel.launches - before == 2 * 3
+    assert launches.read_counts()["B1"] - before == 2 * 3
     mats = camera_matrices(cam, 1.0)
     with torch.no_grad():
         want = golden.render_step(scene, mats, cfg, 1, golden.render_step(
@@ -730,12 +710,10 @@ def test_bench_on_card():
     rec = json.loads(proc.stdout.strip().splitlines()[-1])
     assert rec["metric"] == "Mrays/s/chip fwd+bwd (64^2 bunny, 4 bounces)"
     assert math.isfinite(rec["value"]) and rec["value"] > 0
-    launches = [json.loads(line[len("bench: launches "):])
-                for line in proc.stderr.splitlines()
-                if line.startswith("bench: launches ")]
-    assert launches[0]["per_step"] == {"cluster_sweep": 5,
-                                       "cluster_sweep_mxu": 0, "bvh_walk": 0,
-                                       "shade_segment": 0, "brute_hit": 0}
+    lines = [json.loads(line[len("bench: launches "):])
+             for line in proc.stderr.splitlines()
+             if line.startswith("bench: launches ")]
+    assert lines[0]["per_step"] == launches.named(launches.zeros(B1=5))
 
 
 def _bits_differ(got, want):
@@ -780,13 +758,13 @@ def test_shade_kernel_matches_bounce(use_rr, sky):
             types |= set(scene.materials.mtype[rec.material[live].long()]
                          .tolist())
             want = golden._bounce(scene, cfg, lambda *a, **k: rec, s)
-            before = shade.shade_segment_kernel.launches
+            before = launches.read_counts()["T1"]
             got = shade.shade_segment_kernel(
                 s.o, s.d, s.total, s.trans, s.seed, s.alive, rec, materials,
                 sky_gradient=sky != "black",
                 rr=use_rr and b >= cfg.rr_start_bounce)
             torch.cuda.synchronize()
-            assert shade.shade_segment_kernel.launches == before + 1
+            assert launches.read_counts()["T1"] == before + 1
             for name, g in zip(("o", "d", "total", "trans", "seed", "alive"),
                                got):
                 assert _bits_differ(g, getattr(want, name)) is None, \
@@ -856,12 +834,12 @@ def test_renderer_frames_with_shade_kernel_equal_plain(name, monkeypatch):
         torch.cuda.synchronize()
         return r.image
 
-    before = shade.shade_segment_kernel.launches
+    before = launches.read_counts()["T1"]
     fused = frames()
-    assert shade.shade_segment_kernel.launches - before == 16 * 5
+    assert launches.read_counts()["T1"] - before == 16 * 5
     monkeypatch.setattr(shade, "on_card", lambda t: False)
     plain = frames()
-    assert shade.shade_segment_kernel.launches - before == 16 * 5
+    assert launches.read_counts()["T1"] - before == 16 * 5
     assert float(plain.mean()) > 0.0
     assert _bits_differ(fused, plain) is None, _bits_differ(fused, plain)
 
@@ -876,13 +854,13 @@ def test_shade_kernel_launches_per_frame(samples, bounces):
     cfg = RenderConfig(width=32, height=32, samples=samples,
                        max_bounces=bounces, sky=sky)
     r = Renderer(scene, cam, cfg)
-    before = shade.shade_segment_kernel.launches
+    before = launches.read_counts()["T1"]
     r.step(3)
-    assert shade.shade_segment_kernel.launches - before \
+    assert launches.read_counts()["T1"] - before \
         == 3 * samples * (bounces + 1)
     with profiling.counting() as counts:
         r.step(1)
-    assert shade.shade_segment_kernel.launches - before \
+    assert launches.read_counts()["T1"] - before \
         == 4 * samples * (bounces + 1)
     assert counts["intersect.lanes"] \
         == 32 * 32 * samples * (bounces + 1)
@@ -893,13 +871,13 @@ def _brute_both(scene, o, d, cfg):
     bit for bit ({} where none does)."""
     abc = golden.triangle_vertices(scene.mesh)
     sph, mesh = scene.spheres, scene.mesh
-    before = brute.brute_hit_kernel.launches
+    before = launches.read_counts()["H1"]
     got = brute.brute_hit_kernel(o, d, sph.position, sph.radius, sph.count,
                                  *abc, mesh.tri_draw, mesh.draw_count,
                                  cfg.sphere_near_root_only)
     want = golden._brute_search(scene, o, d, cfg, *abc)
     torch.cuda.synchronize()
-    assert brute.brute_hit_kernel.launches == before + 1
+    assert launches.read_counts()["H1"] == before + 1
     differ = {name: _bits_differ(g, w) for name, g, w in
               zip(("t_s", "s_idx", "t_tri", "t_idx"), got, want)}
     return {k: v for k, v in differ.items() if v}
@@ -988,10 +966,10 @@ def test_brute_kernel_on_serving_queries(name, monkeypatch):
     o = o.clone().requires_grad_()
 
     def record():
-        before = brute.brute_hit_kernel.launches
+        before = launches.read_counts()["H1"]
         rec = golden.intersect_scene_brute(scene, o, d, cfg)
         torch.cuda.synchronize()
-        return rec, brute.brute_hit_kernel.launches - before
+        return rec, launches.read_counts()["H1"] - before
 
     fused, launched = record()
     assert launched == 1 and fused.p.requires_grad
@@ -1020,12 +998,12 @@ def test_brute_kernel_grads_equal_plain(use_nee, monkeypatch):
     def make(s, c):
         return golden.intersect_scene_brute
 
-    before = brute.brute_hit_kernel.launches
+    before = launches.read_counts()["H1"]
     ik, lk, gk, nk = _nee_grads(scene, mats, cfg, make)
-    assert brute.brute_hit_kernel.launches - before == 2 * 3
+    assert launches.read_counts()["H1"] - before == 2 * 3
     monkeypatch.setattr(brute, "on_card", lambda t: False)
     ip, lp, gp, np_ = _nee_grads(scene, mats, cfg, make)
-    assert brute.brute_hit_kernel.launches - before == 2 * 3
+    assert launches.read_counts()["H1"] - before == 2 * 3
     assert torch.isfinite(ik).all() and float(lk) > 0.0
     assert torch.equal(ik, ip) and torch.equal(lk, lp)
     for key in gk:

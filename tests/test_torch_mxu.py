@@ -31,7 +31,7 @@ from wc_path_tracer_tpu.scene import camera as jcamera
 from wc_path_tracer_tpu.utils.config import RenderConfig as JConfig
 
 from wc_path_tracer_tpu_torch import RenderConfig
-from wc_path_tracer_tpu_torch.kernels import cluster
+from wc_path_tracer_tpu_torch.kernels import cluster, launches
 from wc_path_tracer_tpu_torch.models import procedural
 from wc_path_tracer_tpu_torch.render import sweep
 from wc_path_tracer_tpu_torch.scene import camera
@@ -204,10 +204,10 @@ def test_mxu_wrapper_twin_visits_and_early_exit():
         seen.update(nact=nact, visits=visits, out=out, full=full)
         return out
 
-    before = cluster.cluster_sweep_mxu_kernel.launches
+    before = launches.read_counts()["B2"]
     cluster.cluster_sweep(o, d, t0, tw, cmin, cmax, block_fn=block_fn,
                           variant="mxu", mat_tbl=mat)
-    assert cluster.cluster_sweep_mxu_kernel.launches == before
+    assert launches.read_counts()["B2"] == before
     assert torch.all(seen["visits"] <= seen["nact"])
     assert torch.all(seen["visits"] >= (seen["nact"] > 0).int())
     assert int(seen["visits"].sum()) < int(seen["nact"].sum())

@@ -150,8 +150,9 @@ def test_renderer_and_alive_per_bounce_take_the_kernel(monkeypatch):
                                   lambda: builtin.full_bsdf_scene("cpu")],
                          ids=["cornell", "full-bsdf"])
 def test_packed_material_table(make):
-    """``pack_materials``' columns are ``_gather_material``'s fields, in
-    its order, and the type ids beside them."""
+    """``pack_materials``' columns are the materials' fields in
+    ``COLUMNS``' order, the type ids beside them, and ``_gather_material``
+    reads each field back from its columns."""
     materials = make()[0].materials
     table, mtype = shade.pack_materials(materials)
     rows = torch.arange(materials.capacity)
@@ -160,8 +161,9 @@ def test_packed_material_table(make):
     assert mtype.dtype == torch.int32 and torch.equal(mtype, m["mtype"])
     col = 0
     for name, width in shade.COLUMNS:
-        assert torch.equal(table[:, col:col + width],
-                           m[name].reshape(-1, width)), name
+        field = getattr(materials, name).reshape(-1, width)
+        assert torch.equal(table[:, col:col + width], field), name
+        assert torch.equal(m[name].reshape(-1, width), field), name
         col += width
     assert col == table.shape[1] == 14
 
@@ -197,29 +199,18 @@ def _c_parameters(src, fn):
     return len(m.group(1).split(","))
 
 
-@pytest.mark.parametrize("name", sorted(build.SIGNATURES))
-def test_kernel_sources_match_their_signatures(name):
-    """Every CUDA kernel of ``build.SIGNATURES`` (T1's among them) has its
-    source in ``csrc/``, defining each C function with as many parameters
-    as its ctypes signature passes."""
-    src = build.source(name).read_text()
-    for fn, (argtypes, _) in build.SIGNATURES[name].items():
-        assert _c_parameters(src, fn) == len(argtypes), fn
-
-
-def test_t1_is_counted_and_named_apart_from_the_hit_kernels():
-    """T1 is in the launch map, and its kernel's name holds none of the
-    closest-hit kernels' names (which a roofline metric matches)."""
-    assert launches.KERNELS["T1"] is shade.shade_segment_kernel
-    assert launches.NAMES["T1"] == "shade_segment"
-    assert "shade_segment" in build.SIGNATURES
-    src = build.source("shade_segment").read_text()
-    kernels = re.findall(r"__global__ void (?:__launch_bounds__\(\w+\) )?"
-                         r"(\w+)\(", src)
-    assert kernels == ["shade_segment"]
-    assert not any(k in kernels[0]
-                   for k in ("sweep_kernel", "bvh_walk_kernel"))
-    assert "T1" in launches.read_counts()
+@pytest.mark.parametrize("tag", sorted(launches.KERNELS, key=lambda t:
+                                       launches.KERNELS[t].library),
+                         ids=lambda t: launches.KERNELS[t].library)
+def test_kernel_sources_match_their_signatures(tag):
+    """Every CUDA kernel of ``launches.KERNELS`` (T1's among them) has its
+    source in ``csrc/``, defining its entry with as many parameters as its
+    ctypes signature passes, and the one-parameter
+    ``wc_cuda_error_string`` that ``build.load`` binds."""
+    k = launches.KERNELS[tag]
+    src = build.source(k.library).read_text()
+    assert _c_parameters(src, k.entry) == len(k.argtypes), k.entry
+    assert _c_parameters(src, "wc_cuda_error_string") == 1
 
 
 def test_kernel_entry_refuses_cpu_tensors():

@@ -32,7 +32,7 @@ from wc_path_tracer_tpu.scene.types import (MATERIAL_LAMBERTIAN,
 from wc_path_tracer_tpu.utils.config import RenderConfig as JConfig
 
 from wc_path_tracer_tpu_torch import RenderConfig
-from wc_path_tracer_tpu_torch.kernels import traversal
+from wc_path_tracer_tpu_torch.kernels import launches, traversal
 from wc_path_tracer_tpu_torch.models import procedural
 from wc_path_tracer_tpu_torch.render import dispatch, golden, wavefront
 from wc_path_tracer_tpu_torch.scene import camera, types
@@ -155,14 +155,14 @@ def test_multi_draw_bank():
 def test_kernel_wrapper_runs_the_plain_walk_on_cpu():
     _, tscene = _soup(200, 2)
     o, d = (_t(x) for x in random_rays(777, 5))
-    before = traversal.bvh_walk_kernel.launches
+    before = launches.read_counts()["B3"]
     got = traversal.bvh_walk_kernel(o, d, torch.full((777,), KINF),
                                     tscene.mesh)
     want = traversal.bvh_walk_plain(o, d, torch.full((777,), KINF),
                                     tscene.mesh)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert traversal.bvh_walk_kernel.launches == before
+    assert launches.read_counts()["B3"] == before
 
 
 def test_intersect_scene_pallas_full_hitrecord():
@@ -465,23 +465,6 @@ def test_walks_take_an_alive_mask():
         assert torch.equal(tm, torch.where(alive, tp, t_init))
         assert torch.equal(om, torch.where(alive, op, -1))
         assert torch.equal(cm, torch.where(alive[:, None], cp, 0))
-
-
-def test_ray_order_sorts_by_octant_then_morton():
-    """The reordered layout's lane order: a permutation of the rays, sorted
-    by direction octant (the key's top bits), then by the Morton code of
-    the origin."""
-    _, o, d, _ = _bank("soup200")
-    order = traversal.ray_order(o, d)
-    assert order.dtype == torch.int32
-    assert torch.equal(order.sort().values, torch.arange(1024,
-                                                         dtype=torch.int32))
-    key = traversal.ray_order_key(o, d)[order.long()]
-    assert (key[1:] >= key[:-1]).all()
-    octant = (d[order.long()] < 0).long()
-    assert torch.equal(key >> 30, octant[:, 0] | octant[:, 1] << 1
-                       | octant[:, 2] << 2)
-    assert int(key.max() & ((1 << 30) - 1)) < 1 << 30
 
 
 def test_walk_tables_refuse_banks_they_cannot_pack():

@@ -41,6 +41,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
+from chip_smoke import event_ms  # noqa: E402
 from wc_path_tracer_tpu_torch import RenderConfig  # noqa: E402
 from wc_path_tracer_tpu_torch.kernels import build, cluster  # noqa: E402
 from wc_path_tracer_tpu_torch.models.procedural import \
@@ -55,17 +56,6 @@ def load_parent_cull(parent: Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod._cull
-
-
-def event_ms(fn, reps):
-    fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def capture_queries(scene, mats, cfg):

@@ -85,8 +85,7 @@ def main() -> int:
         golden.render_frame(scene, camera_matrices(cam, 1.0), cfg, 0,
                             intersect_fn=wavefront.make_intersect_fn_pallas(
                                 scene, capture))
-    result = dict(card=smi, reps=a.reps, layout=str(traversal.walk_layout()),
-                  per_query=[])
+    result = dict(card=smi, reps=a.reps, per_query=[])
     for q, (o, d, t0) in enumerate(queries):
         R = o.shape[0]
         counts = torch.zeros((R, traversal.COUNT_COLS), dtype=torch.int32,

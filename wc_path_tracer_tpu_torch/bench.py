@@ -164,8 +164,7 @@ def run_steps(step, frames):
 
 def _launches() -> dict:
     from wc_path_tracer_tpu_torch.kernels import launches
-    return {launches.NAMES[tag]: n
-            for tag, n in launches.read_counts().items()}
+    return launches.named(launches.read_counts())
 
 
 def time_steps(label: str, step, frames, device, repeats: int = REPEATS):

@@ -107,8 +107,7 @@ def _kernel_launches() -> dict:
     """Launches of each CUDA kernel wrapper so far in this process, by
     kernel name."""
     from wc_path_tracer_tpu_torch.kernels import launches
-    return {launches.NAMES[tag]: n
-            for tag, n in launches.read_counts().items()}
+    return launches.named(launches.read_counts())
 
 
 def _sync(device):

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from wc_path_tracer_tpu_torch.kernels import build
+from wc_path_tracer_tpu_torch.kernels import launches
 
 
 def on_card(t: torch.Tensor) -> bool:
@@ -33,12 +33,12 @@ def brute_hit_kernel(origin, direction, position, radius, sphere_count,
     vertex rows ``a``, ``b``, ``c`` (T, 3) float32, ``tri_draw`` (T,) int32
     and the live ``draw_count`` () int32; ``near_root_only`` the config's
     sphere quirk.  Detached inputs, CUDA tensors only: the CPU runs the
-    twin.  Launches on the current stream without synchronising and counts
-    the launch in ``brute_hit_kernel.launches``.
+    twin.  Launches through ``launches.launch``: on the current stream
+    without synchronising, counted under H1.
     """
-    who = "brute_hit_kernel"
     if not on_card(direction):
-        raise ValueError(f"{who}: CUDA tensors only, got {direction.device}")
+        raise ValueError("brute_hit_kernel: CUDA tensors only, got "
+                         f"{direction.device}")
     lanes, S, T = direction.shape[0], radius.shape[0], a.shape[0]
     ins = (("origin", origin, torch.float32, (lanes, 3)),
            ("direction", direction, torch.float32, (lanes, 3)),
@@ -50,13 +50,6 @@ def brute_hit_kernel(origin, direction, position, radius, sphere_count,
            ("c", c, torch.float32, (T, 3)),
            ("tri_draw", tri_draw, torch.int32, (T,)),
            ("draw_count", draw_count, torch.int32, ()))
-    for name, t, dtype, shape in ins:
-        if t.dtype != dtype or tuple(t.shape) != shape \
-                or t.device != direction.device:
-            raise ValueError(
-                f"{who}: {name} must be a {dtype} tensor of shape {shape} "
-                f"on {direction.device}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}")
     origin = origin.detach()
     shared = origin.stride() == (0, 1)
     args = [origin if shared else origin.contiguous()]
@@ -64,16 +57,8 @@ def brute_hit_kernel(origin, direction, position, radius, sphere_count,
     dev = direction.device
     outs = [torch.empty(lanes, dtype=dtype, device=dev)
             for dtype in (torch.float32, torch.int64) * 2]
-    lib = build.load("brute_hit")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.wc_brute_hit(*(t.data_ptr() for t in args + outs), lanes,
-                          0 if shared else 3, S, T, int(near_root_only),
-                          stream)
-    if rc != 0:
-        raise RuntimeError("brute_hit kernel launch failed: "
-                           + lib.wc_cuda_error_string(rc).decode())
-    brute_hit_kernel.launches += 1
+    launches.launch("H1", dev, ins,
+                    args + outs + [lanes, 0 if shared else 3, S, T,
+                                   int(near_root_only)],
+                    contiguous=False)
     return tuple(outs)
-
-
-brute_hit_kernel.launches = 0

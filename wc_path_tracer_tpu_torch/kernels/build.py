@@ -9,10 +9,12 @@ new library name, so a stale build is never loaded.  A build writes a
 temporary file and renames it into place, so processes that build at once
 never load a half-written library.  The source's suffix picks the compiler:
 
-- ``.cu``, the CUDA kernels ``kernels/csrc/<name>.cu`` (their signatures in
-  SIGNATURES): nvcc for Hopper (``sm_90a``); ``-fmad=false`` keeps every
-  multiply and add separately rounded, as PyTorch's op-by-op plain twins
-  are, so kernel and twin agree bit for bit;
+- ``.cu``, the CUDA kernels ``kernels/csrc/<name>.cu`` (their entries and
+  signatures in ``launches.KERNELS``; each also exports
+  ``wc_cuda_error_string``, bound here): nvcc for Hopper (``sm_90a``);
+  ``-fmad=false`` keeps every multiply and add separately rounded, as
+  PyTorch's op-by-op plain twins are, so kernel and twin agree bit for
+  bit;
 - ``.cpp``, a host library whose module passes its own source and
   signatures (scene/native.py): g++ with HOST_FLAGS;
   ``-ffp-contract=off`` (and no ``-march=native``) keeps its float32
@@ -38,50 +40,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 HOST_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-ffp-contract=off", "-shared"]
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-# CUDA kernel csrc/<name>.cu -> {C function: (argtypes, restype)}
-SIGNATURES = {
-    "cluster_sweep": {
-        # nact, clist, bt0, order, rays, prev, tris, out, visits, state,
-        # blocks, ray_block, clusters, CTAs per ray block, threads per ray,
-        # passes per visit, stream
-        "wc_cluster_sweep": ([_P] * 10 + [_I] * 6 + [_P], _I),
-        "wc_cuda_error_string": ([_I], ctypes.c_char_p),
-    },
-    "cluster_sweep_mxu": {
-        # nact, clist, bt0, order, rays, prev, trisW, mat_tbl, out, visits,
-        # state, counts, blocks, ray_block, clusters, CTAs per ray block,
-        # threads per ray, passes per visit, stream
-        "wc_cluster_sweep_mxu": ([_P] * 12 + [_I] * 6 + [_P], _I),
-        "wc_cuda_error_string": ([_I], ctypes.c_char_p),
-    },
-    "bvh_walk": {
-        # origin, direction, t_init, node / triangle / draw records, lanes,
-        # alive mask, lane counter, t_out, off_out, counts, rays, draws,
-        # stack slots, top levels, staged records, flags, stream
-        "wc_bvh_walk": ([_P] * 12 + [_I] * 6 + [_P], _I),
-        "wc_cuda_error_string": ([_I], ctypes.c_char_p),
-    },
-    "shade_segment": {
-        # o, d, total, trans, seed, alive, the hit record's t, p, normal,
-        # hit, front, material, the material table and type ids, the six
-        # outputs (o, d, total, trans, seed, alive), lanes, o's row stride,
-        # gradient sky, Russian roulette, stream
-        "wc_shade_segment": ([_P] * 20 + [_I] * 4 + [_P], _I),
-        "wc_cuda_error_string": ([_I], ctypes.c_char_p),
-    },
-    "brute_hit": {
-        # origin, direction, sphere positions, radii and live count, the
-        # triangle slots' vertex rows a, b, c, their draws and the live draw
-        # count, the four outputs (t_s, s_idx, t_tri, t_idx), lanes,
-        # origin's row stride, sphere slots, triangle slots, near root
-        # only, stream
-        "wc_brute_hit": ([_P] * 14 + [_I] * 5 + [_P], _I),
-        "wc_cuda_error_string": ([_I], ctypes.c_char_p),
-    },
-}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -134,14 +92,15 @@ def library_path(name: str, src: Path | None = None) -> Path:
 
 
 def build_all(names=None, sources=None) -> dict[str, str]:
-    """Compile every named CUDA kernel (default: all of SIGNATURES) and
+    """Compile every named CUDA kernel (default: every ``csrc/*.cu``) and
     every library of ``sources`` ({name: source path}) that has no current
     library, one compiler process per source, all started together.
     Returns {name: the compiler's output} (for nvcc, ptxas registers/shared
     memory/spills) for the sources it compiled; raises with the compiler's
     output if any fails."""
     todo = {name: source(name)
-            for name in (SIGNATURES if names is None else names)}
+            for name in (sorted(p.stem for p in CSRC.glob("*.cu"))
+                         if names is None else names)}
     todo.update({name: Path(src) for name, src in (sources or {}).items()})
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -170,15 +129,18 @@ def build_all(names=None, sources=None) -> dict[str, str]:
 def load(name: str, src: Path | None = None,
          signatures: dict | None = None) -> ctypes.CDLL:
     """The loaded library ``name``, built if needed: the CUDA kernel
-    ``csrc/<name>.cu`` with its SIGNATURES entry, or the given source with
-    the given ``signatures``."""
+    ``csrc/<name>.cu`` or the given source, with the given ``signatures``
+    ({C function: (argtypes, restype)}; a CUDA kernel's
+    ``wc_cuda_error_string`` is bound besides)."""
     lib = _loaded.get(name)
     if lib is None:
         path = library_path(name, src)
         if not path.exists():
             build_all([], {name: source(name, src)})
         lib = ctypes.CDLL(str(path))
-        sigs = SIGNATURES[name] if signatures is None else signatures
+        sigs = dict(signatures or {})
+        if not _host(source(name, src)):
+            sigs["wc_cuda_error_string"] = ([ctypes.c_int], ctypes.c_char_p)
         for fn, (argtypes, restype) in sigs.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from wc_path_tracer_tpu_torch.kernels import build
+from wc_path_tracer_tpu_torch.kernels import launches
 from wc_path_tracer_tpu_torch.ops import intersect as ix
 from wc_path_tracer_tpu_torch.utils import profiling
 
@@ -439,17 +439,33 @@ def sweep_layout(ray_block: int) -> tuple[int, int, int]:
     return ctas, groups, -(-ray_block // (ctas * 1024 // groups))
 
 
-def _scratch(rays, passes):
-    """The kernels' per-ray (t_best, winner) state for a ray block taken in
-    several passes, else None."""
-    if passes == 1:
-        return None
+def _sweep_launch(tag, C, nact, clist, bt0, rays, prev, tables, visits,
+                  tail=()):
+    """Launch B1 or B2 over C clusters -> payload (RB, B, 16).  ``tables``
+    holds the kernel's tables as (name, table, shape) rows, passed after
+    ``prev``; ``tail`` (name, tensor or None, dtype, shape) rows passed
+    after the scratch state (B2's vote counts).  The kernel takes the ray
+    blocks in order of falling ``nact`` (one device argsort here, no host
+    sync)."""
     RB, B, _ = rays.shape
-    return torch.empty((RB * B, 2), dtype=torch.int32, device=rays.device)
-
-
-def _ptr(t):
-    return t.data_ptr() if t is not None else None
+    f32, i32 = torch.float32, torch.int32
+    ins = (("rays", rays, f32, (RB, B, PAYLOAD_COLS)),
+           ("prev", prev, f32, (RB, B, PAYLOAD_COLS)),
+           *((name, t, f32, shape) for name, t, shape in tables),
+           ("nact", nact, i32, (RB,)),
+           ("clist", clist, i32, (RB, C)),
+           ("bt0", bt0, f32, (RB, C)),
+           ("visits", visits, i32, (RB,)), *tail)
+    out = torch.empty_like(prev)
+    ctas, groups, passes = sweep_layout(B)
+    state = None if passes == 1 else torch.empty((RB * B, 2), dtype=i32,
+                                                 device=rays.device)
+    order = torch.argsort(nact, descending=True, stable=True).to(i32)
+    launches.launch(tag, rays.device, ins, [
+        nact, clist, bt0, order, rays, prev, *(t for _, t, _ in tables), out,
+        visits, state, *(t for _, t, _, _ in tail), RB, B, C, ctas, groups,
+        passes])
+    return out
 
 
 def check_mxu_form(trisW) -> None:
@@ -479,47 +495,18 @@ def cluster_sweep_kernel(nact, clist, bt0, rays, prev, tris, visits=None):
     ``cluster_sweep_plain``) -> payload (RB, B, 16).
 
     On CUDA tensors this launches the Hopper kernel (csrc/cluster_sweep.cu)
-    on the current stream without synchronising, and counts the launch in
-    ``cluster_sweep_kernel.launches``; on CPU tensors it runs the plain
-    twin.  Any ray block size is taken (``sweep_layout``); any other device,
-    dtype, shape or layout raises.  The kernel takes the ray blocks in order
-    of falling ``nact`` (one device argsort here, no host sync).
+    through ``launches.launch``, on the current stream without
+    synchronising, counted under B1; on CPU tensors it runs the plain twin.
+    Any ray block size is taken (``sweep_layout``); any other device, dtype,
+    shape or layout raises.
     """
     if rays.device.type == "cpu":
         return cluster_sweep_plain(nact, clist, bt0, rays, prev, tris, visits)
     if rays.device.type != "cuda":
         raise ValueError(f"cluster_sweep_kernel: unsupported device {rays.device}")
-    RB, B, cols = rays.shape
     C = tris.shape[0] // CLUSTER_ROWS
-    _check(rays, torch.float32, (RB, B, PAYLOAD_COLS), "rays")
-    _check(prev, torch.float32, (RB, B, PAYLOAD_COLS), "prev")
-    _check(tris, torch.float32, (C * CLUSTER_ROWS, CLUSTER_TRIS), "tris")
-    _check(nact, torch.int32, (RB,), "nact")
-    _check(clist, torch.int32, (RB, C), "clist")
-    _check(bt0, torch.float32, (RB, C), "bt0")
-    if visits is not None:
-        _check(visits, torch.int32, (RB,), "visits")
-    for t in (prev, tris, nact, clist, bt0, visits):
-        if t is not None and t.device != rays.device:
-            raise ValueError("cluster_sweep_kernel: tensors on different devices")
-    out = torch.empty_like(prev)
-    ctas, groups, passes = sweep_layout(B)
-    state = _scratch(rays, passes)
-    order = torch.argsort(nact, descending=True, stable=True).to(torch.int32)
-    lib = build.load("cluster_sweep")
-    stream = torch.cuda.current_stream(rays.device).cuda_stream
-    rc = lib.wc_cluster_sweep(
-        nact.data_ptr(), clist.data_ptr(), bt0.data_ptr(), order.data_ptr(),
-        rays.data_ptr(), prev.data_ptr(), tris.data_ptr(), out.data_ptr(),
-        _ptr(visits), _ptr(state), RB, B, C, ctas, groups, passes, stream)
-    if rc != 0:
-        raise RuntimeError("cluster_sweep kernel launch failed: "
-                           + lib.wc_cuda_error_string(rc).decode())
-    cluster_sweep_kernel.launches += 1
-    return out
-
-
-cluster_sweep_kernel.launches = 0
+    return _sweep_launch("B1", C, nact, clist, bt0, rays, prev, (
+        ("tris", tris, (C * CLUSTER_ROWS, CLUSTER_TRIS)),), visits)
 
 
 def cluster_sweep_mxu_kernel(nact, clist, bt0, rays, prev, trisW, mat_tbl,
@@ -528,72 +515,28 @@ def cluster_sweep_mxu_kernel(nact, clist, bt0, rays, prev, trisW, mat_tbl,
     test (the inputs of ``cluster_sweep_mxu_plain``) -> payload (RB, B, 16).
 
     On CUDA tensors this launches the Hopper kernel
-    (csrc/cluster_sweep_mxu.cu) on the current stream without
-    synchronising, and counts the launch in
-    ``cluster_sweep_mxu_kernel.launches``; on CPU tensors it runs the plain
-    twin.  On both, ``trisW`` must pass ``check_mxu_form``.  Any ray block
-    size is taken (``sweep_layout``); any other device, dtype, shape or
-    layout raises.  The kernel takes the ray blocks in order of falling
-    ``nact``.  ``counts`` (3,) int64 on the card, if given, receives the
-    kernel's (warp, slot step) pairs tested and those that passed its t and
-    u votes (ray blocks taken in one pass only).
+    (csrc/cluster_sweep_mxu.cu) through ``launches.launch``, on the current
+    stream without synchronising, counted under B2; on CPU tensors it runs
+    the plain twin.  On both, ``trisW`` must pass ``check_mxu_form``.  Any
+    ray block size is taken (``sweep_layout``); any other device, dtype,
+    shape or layout raises.  ``counts`` (3,) int64 on the card, if given,
+    receives the kernel's (warp, slot step) pairs tested and those that
+    passed its t and u votes (ray blocks taken in one pass only).
     """
     who = "cluster_sweep_mxu_kernel"
+    if rays.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: unsupported device {rays.device}")
+    if rays.device.type == "cpu" and counts is not None:
+        raise ValueError(f"{who}: vote counts exist on the card only")
+    check_mxu_form(trisW)
     if rays.device.type == "cpu":
-        if counts is not None:
-            raise ValueError(f"{who}: vote counts exist on the card only")
-        check_mxu_form(trisW)
         return cluster_sweep_mxu_plain(nact, clist, bt0, rays, prev, trisW,
                                        mat_tbl, visits)
-    if rays.device.type != "cuda":
-        raise ValueError(f"{who}: unsupported device {rays.device}")
-    RB, B, _ = rays.shape
-    C = trisW.shape[0] // MXU_ROWS
-    _check(rays, torch.float32, (RB, B, PAYLOAD_COLS), "rays", who)
-    _check(prev, torch.float32, (RB, B, PAYLOAD_COLS), "prev", who)
-    _check(trisW, torch.float32, (C * MXU_ROWS, MXU_FIELDS * CLUSTER_TRIS),
-           "trisW", who)
-    _check(mat_tbl, torch.float32, (C, CLUSTER_TRIS), "mat_tbl", who)
-    _check(nact, torch.int32, (RB,), "nact", who)
-    _check(clist, torch.int32, (RB, C), "clist", who)
-    _check(bt0, torch.float32, (RB, C), "bt0", who)
-    if visits is not None:
-        _check(visits, torch.int32, (RB,), "visits", who)
-    if counts is not None:
-        _check(counts, torch.int64, (3,), "counts", who)
-    for t in (prev, trisW, mat_tbl, nact, clist, bt0, visits, counts):
-        if t is not None and t.device != rays.device:
-            raise ValueError(f"{who}: tensors on different devices")
-    check_mxu_form(trisW)
-    out = torch.empty_like(prev)
-    ctas, groups, passes = sweep_layout(B)
-    if counts is not None and passes > 1:
+    if counts is not None and sweep_layout(rays.shape[1])[2] > 1:
         raise ValueError(f"{who}: vote counts need a ray block taken in one "
                          "pass")
-    state = _scratch(rays, passes)
-    order = torch.argsort(nact, descending=True, stable=True).to(torch.int32)
-    lib = build.load("cluster_sweep_mxu")
-    stream = torch.cuda.current_stream(rays.device).cuda_stream
-    rc = lib.wc_cluster_sweep_mxu(
-        nact.data_ptr(), clist.data_ptr(), bt0.data_ptr(), order.data_ptr(),
-        rays.data_ptr(), prev.data_ptr(), trisW.data_ptr(), mat_tbl.data_ptr(),
-        out.data_ptr(), _ptr(visits), _ptr(state), _ptr(counts), RB, B, C,
-        ctas, groups, passes, stream)
-    if rc != 0:
-        raise RuntimeError("cluster_sweep_mxu kernel launch failed: "
-                           + lib.wc_cuda_error_string(rc).decode())
-    cluster_sweep_mxu_kernel.launches += 1
-    return out
-
-
-cluster_sweep_mxu_kernel.launches = 0
-
-
-def _check(t, dtype, shape, name, who="cluster_sweep_kernel"):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"{who}: {name} must be a contiguous {dtype} "
-            f"tensor of shape {tuple(shape)}, got {t.dtype} "
-            f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
-
+    C = trisW.shape[0] // MXU_ROWS
+    return _sweep_launch("B2", C, nact, clist, bt0, rays, prev, (
+        ("trisW", trisW, (C * MXU_ROWS, MXU_FIELDS * CLUSTER_TRIS)),
+        ("mat_tbl", mat_tbl, (C, CLUSTER_TRIS))), visits,
+        (("counts", counts, torch.int64, (3,)),))

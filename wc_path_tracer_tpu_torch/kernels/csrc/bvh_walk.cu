@@ -54,15 +54,14 @@
 // - While-while order (Aila & Laine, HPG 2009): a thread descends inner
 //   nodes until it holds a leaf or nothing, and only then tests triangles.
 //   Nothing is speculative: each ray's order is the twin's.
-// - Layouts (traversal.WalkLayout; PERF.md times each): one thread per ray
-//   in blockIdx order, or persistent warps (a few CTAs per SM) that take 32
-//   lanes at a time from a global counter with atomicAdd and either walk
-//   each batch to its end or, the default, refill a lane whose ray is done
-//   once a quarter of the warp is idle (Aila & Laine's dynamic fetch); the
-//   stack in local memory (the default; it leaves L1 to the records) or in
-//   shared memory (entry i of thread x at [i][x], conflict-free); each
-//   draw's top 6 or 8 levels of records staged per CTA with cp.async; rays
-//   in an order the wrapper gives (lanes).
+// - Persistent warps (as many CTAs as fit on the SMs) take 32 lanes at a
+//   time from a global counter with atomicAdd, in the rays' given order,
+//   and refill a lane whose ray is done once kRefillIdle lanes of the warp
+//   are idle (Aila & Laine's dynamic fetch); the stack lives in local
+//   memory, which leaves L1 to the records.  Chosen on the card (PERF.md)
+//   over one thread per ray in blockIdx order, warps walking 32-ray
+//   batches to their ends, the stack in shared memory, the top levels of
+//   records staged in shared memory and the rays sorted by a Morton key.
 // - Live lanes only: with the transport's alive mask, a persistent warp
 //   queues the live lanes it takes in shared memory (ballot and popc) and
 //   walks only them; a dead lane gets (t_init, -1) and zero counters from
@@ -79,6 +78,7 @@ constexpr int kLocalStack = 64;   // traversal.STACK_DEPTH
 constexpr int kCountCols = 3;     // nodes popped, inner entered, tris tested
 constexpr int kNone = -1;         // carried child: >= 0 record, <= -2 leaf
 constexpr int kSharedDraws = 32;  // draw records each CTA keeps in shared
+constexpr int kRefillIdle = 8;    // refill once this many lanes of a warp idle
 
 struct Params {
   const float* origin;     // (R, 3)
@@ -86,20 +86,14 @@ struct Params {
   const float* t_init;     // (R,)
   const float4* nodes;     // (NR, 4) child-pair records
   const float4* tris;      // (T, 3) triangle records
-  const float4* draws;     // (D, 3) per-draw root records
-  const int* lanes;        // (R,) the order to take the rays in, or null
+  const float4* draws;     // (D, 2) per-draw root records
   const bool* alive;       // (R,) rays to walk, or null (every ray)
-  int* counter;            // persistent: lanes taken so far (zeroed)
+  int* counter;            // lanes taken so far (zeroed)
   float* t_out;            // (R,)
   int* off_out;            // (R,)
   int* counts;             // (R, 3) or null
-  int num_rays, num_draws, stack_slots, top_levels, stage_records;
+  int num_rays, num_draws;
 };
-
-// The ray a schedule's i-th lane walks: the wrapper's order, if it gave one.
-__device__ __forceinline__ int ray_of(const Params& p, int i) {
-  return p.lanes != nullptr ? p.lanes[i] : i;
-}
 
 // torch.minimum / torch.maximum: NaN if either operand is NaN, in one
 // instruction (min.NaN / max.NaN, sm_80 and later)
@@ -136,43 +130,25 @@ __device__ __forceinline__ bool nonempty_ahead(Box b) {
   return (b.t0 <= b.t1) & (b.t1 >= 0.0f);
 }
 
-// (ref, t0) stacks: entry i of this thread
-struct SharedStack {
-  int2* col;  // this thread's column of the CTA's [slot][thread] array
-  __device__ __forceinline__ void put(int i, int2 v) { col[i * kThreads] = v; }
-  __device__ __forceinline__ int2 get(int i) const { return col[i * kThreads]; }
-};
+// this thread's (ref, t0) stack
 struct LocalStack {
   int2 e[kLocalStack];
   __device__ __forceinline__ void put(int i, int2 v) { e[i] = v; }
   __device__ __forceinline__ int2 get(int i) const { return e[i]; }
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ int top_records(const Params& p, int di) {
-  const float4 d2 = __ldg(p.draws + 3 * di + 2);
-  return __float_as_int(p.top_levels == 6 ? d2.x : d2.y);
-}
-
-// One lane's walk of one ray, as state, so a schedule can interleave the
-// steps of different rays on a warp's lanes without changing any ray's
-// order: begin(), then next_draw() until it is false, each draw stepped by
-// inner() and leaf() until cur is kNone, then finish().
-template <bool kCount, bool kStage, class Stack>
+// One lane's walk of one ray, as state, so the warp can interleave the
+// steps of different rays on its lanes without changing any ray's order:
+// begin(), then next_draw() until it is false, each draw stepped by inner()
+// and leaf() until cur is kNone, then finish().
+template <bool kCount>
 struct Walker {
   const Params& p;
-  Stack& st;
-  const int cap;            // stack entries (the wrapper checks depth)
-  const float4* s_top;      // staged top records, if any
+  LocalStack& st;
   const float4* s_draws;    // the first kSharedDraws draw records
   int r, best, popped, entered, tested;
   float ox, oy, oz, dx, dy, dz, ix, iy, iz, t_best;
-  int di, cur, sp, root, staged, stage_off, staged_before;
+  int di, cur, sp;
 
   __device__ __forceinline__ void begin(int ray) {
     r = ray;
@@ -190,7 +166,6 @@ struct Walker {
     popped = entered = tested = 0;
     di = -1;
     cur = kNone;
-    staged_before = 0;
   }
 
   // Pop the draws' roots in order until one is entered (cur >= 0 or a
@@ -199,24 +174,18 @@ struct Walker {
     while (++di < p.num_draws) {
       float4 d0, d1;
       if (di < kSharedDraws) {
-        d0 = s_draws[3 * di];
-        d1 = s_draws[3 * di + 1];
+        d0 = s_draws[2 * di];
+        d1 = s_draws[2 * di + 1];
       } else {
-        d0 = __ldg(p.draws + 3 * di);
-        d1 = __ldg(p.draws + 3 * di + 1);
-      }
-      root = __float_as_int(d1.z);
-      if (kStage) {
-        stage_off = staged_before;
-        staged = min(top_records(p, di), p.stage_records - staged_before);
-        staged_before += staged;
+        d0 = __ldg(p.draws + 2 * di);
+        d1 = __ldg(p.draws + 2 * di + 1);
       }
       ++popped;
       sp = 0;
       const Box b = slab(d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, ox, oy, oz, ix,
                          iy, iz);
       if (nonempty_ahead(b) && b.t0 <= t_best) {
-        cur = root;
+        cur = __float_as_int(d1.z);
         return true;
       }
     }
@@ -238,21 +207,9 @@ struct Walker {
     while (cur >= 0) {
       ++entered;
       popped += 2;
-      float4 q0, q1, q2, q3;
-      const unsigned local = static_cast<unsigned>(cur - root);
-      if (kStage && local < static_cast<unsigned>(staged)) {
-        const float4* q = s_top + 4 * (stage_off + local);
-        q0 = q[0];
-        q1 = q[1];
-        q2 = q[2];
-        q3 = q[3];
-      } else {
-        const float4* q = p.nodes + 4 * static_cast<size_t>(cur);
-        q0 = __ldg(q);
-        q1 = __ldg(q + 1);
-        q2 = __ldg(q + 2);
-        q3 = __ldg(q + 3);
-      }
+      const float4* q = p.nodes + 4 * static_cast<size_t>(cur);
+      const float4 q0 = __ldg(q), q1 = __ldg(q + 1), q2 = __ldg(q + 2),
+                   q3 = __ldg(q + 3);
       const Box lb = slab(q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, ox, oy, oz, ix,
                           iy, iz);
       const Box rb = slab(q1.z, q1.w, q2.x, q2.y, q2.z, q2.w, ox, oy, oz, ix,
@@ -268,7 +225,7 @@ struct Walker {
       // the twin pushes far then near and pops near next: near is entered
       // at the t_best of now, far waits on the stack
       if (nonempty_ahead(nb) && nb.t0 <= t_best) {
-        if (nonempty_ahead(fb) && sp < cap)  // always room: depth checked
+        if (nonempty_ahead(fb) && sp < kLocalStack)  // always: depth checked
           st.put(sp++, make_int2(far, __float_as_int(fb.t0)));
         cur = near;
       } else if (nonempty_ahead(fb) && fb.t0 <= t_best) {
@@ -325,20 +282,6 @@ struct Walker {
       p.counts[kCountCols * r + 2] = tested;
     }
   }
-
-  // The whole walk of one ray (while-while: inner nodes until a leaf, then
-  // the leaf).
-  __device__ __forceinline__ void walk(int ray) {
-    begin(ray);
-    while (next_draw()) {
-      while (true) {
-        inner();
-        if (cur == kNone) break;
-        leaf();
-      }
-    }
-    finish();
-  }
 };
 
 // A ray the caller marked dead gets (t_init, -1) and zero counters.
@@ -353,15 +296,13 @@ __device__ __forceinline__ void dead_ray(const Params& p, int r) {
   }
 }
 
-enum Schedule { kGrid = 0, kBatch = 1, kRefill = 2 };
-constexpr int kRefillIdle = 8;  // refill once this many lanes of a warp idle
-
-// Persistent warps: take 32 lanes from the global counter, write the dead
-// ones' results, and queue the live ones (ballot + popc) in the warp's
-// shared-memory queue until it holds `want` rays or the lanes run out.
+// Take 32 lanes from the global counter, write the dead ones' results, and
+// queue the live ones (ballot + popc) in the warp's shared-memory queue
+// until it holds `want` rays or the lanes run out.
+template <bool kCount>
 __device__ __forceinline__ void fill_queue(const Params& p, int* queue,
                                            int& queued, bool& drained,
-                                           int want, bool count) {
+                                           int want) {
   const int lane = threadIdx.x & 31;
   while (queued < want && !drained) {
     int base = 0;
@@ -371,13 +312,9 @@ __device__ __forceinline__ void fill_queue(const Params& p, int* queue,
       drained = true;
       break;
     }
-    const int i = base + lane;
-    const int r = i >= p.num_rays ? -1 : ray_of(p, i);
+    const int r = base + lane < p.num_rays ? base + lane : -1;
     const bool live = r >= 0 && (p.alive == nullptr || p.alive[r]);
-    if (r >= 0 && !live) {
-      if (count) dead_ray<true>(p, r);
-      else dead_ray<false>(p, r);
-    }
+    if (r >= 0 && !live) dead_ray<kCount>(p, r);
     const unsigned mask = __ballot_sync(0xffffffffu, live);
     if (live) queue[queued + __popc(mask & ((1u << lane) - 1u))] = r;
     queued += __popc(mask);
@@ -400,45 +337,29 @@ __device__ __forceinline__ int take_queue(int* queue, int& queued,
   return r;
 }
 
-template <bool kCount, int kSchedule, bool kStage, class Stack>
-__device__ __forceinline__ void walk_rays(const Params& p, Stack& st, int cap,
-                                          const float4* s_top,
-                                          const float4* s_draws) {
-  Walker<kCount, kStage, Stack> w{p, st, cap, s_top, s_draws};
-  if (kSchedule == kGrid) {  // one thread per ray, in blockIdx order
-    const int i = blockIdx.x * kThreads + threadIdx.x;
-    if (i >= p.num_rays) return;
-    const int r = ray_of(p, i);
-    if (p.alive == nullptr || p.alive[r]) w.walk(r);
-    else dead_ray<kCount>(p, r);
-    return;
-  }
-  // Persistent warps share a queue of live rays per warp; dead lanes take
-  // no walk slot.
+// A lane whose ray is done takes the next queued ray once kRefillIdle lanes
+// of its warp are idle (Aila & Laine's dynamic fetch), so a long ray no
+// longer holds 31 idle lanes.  Each loop runs one while-while round per
+// busy lane: inner nodes until a leaf, the leaf, and at a draw's end the
+// next draw's root.  Dead lanes take no walk slot.
+template <bool kCount>
+__global__ void __launch_bounds__(kThreads) bvh_walk_kernel(const Params p) {
+  __shared__ float4 s_draws[2 * kSharedDraws];
   __shared__ int s_queue[kThreads / 32][64];
+  for (int i = threadIdx.x; i < 2 * min(p.num_draws, kSharedDraws);
+       i += kThreads)
+    s_draws[i] = __ldg(p.draws + i);
+  __syncthreads();
+  LocalStack st;
+  Walker<kCount> w{p, st, s_draws};
   int* queue = s_queue[threadIdx.x >> 5];
   int queued = 0;  // warp-uniform
-  bool drained = false;
-  if (kSchedule == kBatch) {  // 32 rays at a time, each walked to its end
-    while (true) {
-      fill_queue(p, queue, queued, drained, 32, kCount);
-      if (queued == 0) break;
-      const int r = take_queue(queue, queued, 0xffffffffu, min(queued, 32));
-      if (r >= 0) w.walk(r);
-    }
-    return;
-  }
-  // kRefill: a lane whose ray is done takes the next queued ray once
-  // kRefillIdle lanes of its warp are idle (Aila & Laine's dynamic fetch),
-  // so a long ray no longer holds 31 idle lanes.  Each loop runs one
-  // while-while round per busy lane: inner nodes until a leaf, the leaf,
-  // and at a draw's end the next draw's root.
-  bool busy = false;
+  bool drained = false, busy = false;
   while (true) {
     const unsigned idle = __ballot_sync(0xffffffffu, !busy);
     if (idle == 0xffffffffu ||
         (__popc(idle) >= kRefillIdle && !(drained && queued == 0))) {
-      fill_queue(p, queue, queued, drained, __popc(idle), kCount);
+      fill_queue<kCount>(p, queue, queued, drained, __popc(idle));
       const int r = take_queue(queue, queued, idle,
                                min(queued, __popc(idle)));
       if (r >= 0) {
@@ -462,127 +383,56 @@ __device__ __forceinline__ void walk_rays(const Params& p, Stack& st, int cap,
   }
 }
 
-template <bool kCount, int kSchedule, bool kSharedStack, bool kStage>
-__global__ void __launch_bounds__(kThreads) bvh_walk_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float4 s_draws[3 * kSharedDraws];
-  for (int i = threadIdx.x; i < 3 * min(p.num_draws, kSharedDraws);
-       i += kThreads)
-    s_draws[i] = __ldg(p.draws + i);
-  float4* s_top = reinterpret_cast<float4*>(smem);
-  if (kStage) {  // each draw's top records, once per CTA
-    int staged = 0;
-    for (int di = 0; di < p.num_draws && staged < p.stage_records; ++di) {
-      const int n = min(top_records(p, di), p.stage_records - staged);
-      const float4* src =
-          p.nodes + 4 * static_cast<size_t>(__float_as_int(
-                            __ldg(p.draws + 3 * di + 1).z));
-      for (int i = threadIdx.x; i < 4 * n; i += kThreads)
-        cp_async16(s_top + 4 * staged + i, src + i);
-      staged += n;
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (kSharedStack) {
-    SharedStack st{reinterpret_cast<int2*>(smem + 64 * p.stage_records) +
-                   threadIdx.x};
-    walk_rays<kCount, kSchedule, kStage>(p, st, p.stack_slots, s_top,
-                                         s_draws);
-  } else {
-    LocalStack st;
-    walk_rays<kCount, kSchedule, kStage>(p, st, kLocalStack, s_top, s_draws);
-  }
-}
-
-template <bool kCount, int kSchedule, bool kSharedStack, bool kStage>
+// As many CTAs as fit on the card at once, at most one per 128 rays.
+template <bool kCount>
 int launch(const Params& p, cudaStream_t stream) {
-  const auto kernel = bvh_walk_kernel<kCount, kSchedule, kSharedStack, kStage>;
-  const size_t smem =
-      64 * static_cast<size_t>(p.stage_records) +
-      (kSharedStack ? 8 * static_cast<size_t>(kThreads) * p.stack_slots : 0);
-  // per instantiation: the largest dynamic shared memory allowed so far,
-  // and the CTAs per SM at the last size asked
-  static size_t allowed = 48 * 1024;
+  // per instantiation: the CTAs per SM on the last device asked
   static int device = -1, sms = 0, per_sm = 0;
-  static size_t per_sm_smem = 0;
   cudaError_t err;
-  if (smem > allowed) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  if (dev != device) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, bvh_walk_kernel<kCount>, kThreads, 0);
     if (err != cudaSuccess) return static_cast<int>(err);
-    allowed = smem;
+    device = dev;
   }
-  int blocks = (p.num_rays + kThreads - 1) / kThreads;
-  if (kSchedule != kGrid) {
-    int dev = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-    if (dev != device || smem != per_sm_smem) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                            kThreads, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      device = dev;
-      per_sm_smem = smem;
-    }
-    blocks = std::min(blocks, std::max(per_sm, 1) * sms);
-  }
-  bvh_walk_kernel<kCount, kSchedule, kSharedStack, kStage>
-      <<<blocks, kThreads, smem, stream>>>(p);
+  const int blocks = std::min((p.num_rays + kThreads - 1) / kThreads,
+                              std::max(per_sm, 1) * sms);
+  bvh_walk_kernel<kCount><<<blocks, kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launch on `stream` (a cudaStream_t); returns cudaGetLastError() after the
-// launch, so a refused launch is reported to the caller.  flags: bits 0-1
-// the schedule (0 one thread per ray in blockIdx order, 1 persistent warps
-// walking 32-ray batches, 2 persistent warps refilling idle lanes), bit 2
-// the stack in shared memory.
+// launch, so a refused launch is reported to the caller.  `counter` is one
+// zeroed int; `alive` and `counts` may be null.
 extern "C" int wc_bvh_walk(const void* origin, const void* direction,
                            const void* t_init, const void* nodes,
                            const void* tris, const void* draws,
-                           const void* lanes, const void* alive,
-                           void* counter, void* t_out, void* off_out,
-                           void* counts, int num_rays, int num_draws,
-                           int stack_slots, int top_levels, int stage_records,
-                           int flags, void* stream) {
+                           const void* alive, void* counter, void* t_out,
+                           void* off_out, void* counts, int num_rays,
+                           int num_draws, void* stream) {
+  if (num_rays <= 0) return cudaSuccess;
+  if (counter == nullptr) return cudaErrorInvalidValue;
   const Params p{static_cast<const float*>(origin),
                  static_cast<const float*>(direction),
                  static_cast<const float*>(t_init),
                  static_cast<const float4*>(nodes),
                  static_cast<const float4*>(tris),
                  static_cast<const float4*>(draws),
-                 static_cast<const int*>(lanes),
                  static_cast<const bool*>(alive),
                  static_cast<int*>(counter),
                  static_cast<float*>(t_out),
                  static_cast<int*>(off_out),
                  static_cast<int*>(counts),
                  num_rays,
-                 num_draws,
-                 stack_slots,
-                 top_levels,
-                 stage_records};
+                 num_draws};
   const auto s = static_cast<cudaStream_t>(stream);
-  const int schedule = flags & 3, shared = (flags >> 2) & 1;
-  if (schedule > kRefill || (schedule != kGrid && counter == nullptr))
-    return cudaErrorInvalidValue;
-  // every (counts, schedule, stack, staging) instance
-  using Launch = int (*)(const Params&, cudaStream_t);
-  static const Launch table[24] = {
-#define WC_WALK_ROW(C, S)                                              \
-  launch<C, S, false, false>, launch<C, S, false, true>,               \
-      launch<C, S, true, false>, launch<C, S, true, true>
-      WC_WALK_ROW(false, kGrid), WC_WALK_ROW(false, kBatch),
-      WC_WALK_ROW(false, kRefill), WC_WALK_ROW(true, kGrid),
-      WC_WALK_ROW(true, kBatch), WC_WALK_ROW(true, kRefill)
-#undef WC_WALK_ROW
-  };
-  return table[(counts != nullptr) * 12 + schedule * 4 + shared * 2 +
-               (stage_records > 0)](p, s);
+  return counts != nullptr ? launch<true>(p, s) : launch<false>(p, s);
 }
 
 extern "C" const char* wc_cuda_error_string(int code) {

@@ -14,9 +14,10 @@ from __future__ import annotations
 
 import torch
 
-from wc_path_tracer_tpu_torch.kernels import build
+from wc_path_tracer_tpu_torch.kernels import launches
 
-# pack_materials' float columns, in golden._gather_material's order
+# pack_materials' float columns: the material table of T1 and of
+# golden._gather_material
 COLUMNS = (("albedo", 3), ("emission", 3), ("emission_strength", 1),
            ("roughness", 1), ("metallic", 1), ("absorption", 3),
            ("absorption_strength", 1), ("ior", 1))
@@ -29,7 +30,7 @@ def on_card(t: torch.Tensor) -> bool:
 
 def pack_materials(materials):
     """-> ((M, 14) float32 table, (M,) int32 type ids): the columns of
-    ``COLUMNS`` side by side, as ``_gather_material`` stacks them."""
+    ``COLUMNS`` side by side."""
     return (torch.cat([getattr(materials, name).reshape(-1, width)
                        for name, width in COLUMNS], 1), materials.mtype)
 
@@ -44,13 +45,13 @@ def shade_segment_kernel(o, d, total, trans, seed, alive, rec, materials,
     the pair of ``pack_materials``; ``sky_gradient`` the gradient sky (else
     black); ``rr`` Russian roulette in this segment (``cfg.use_rr`` and the
     segment at or past ``cfg.rr_start_bounce``).  CUDA tensors only: the
-    transport takes ``_bounce`` everywhere else.  Launches on the current
-    stream without synchronising and counts the launch in
-    ``shade_segment_kernel.launches``.
+    transport takes ``_bounce`` everywhere else.  Launches through
+    ``launches.launch``: on the current stream without synchronising,
+    counted under T1.
     """
-    who = "shade_segment_kernel"
     if not on_card(d):
-        raise ValueError(f"{who}: CUDA tensors only, got {d.device}")
+        raise ValueError("shade_segment_kernel: CUDA tensors only, got "
+                         f"{d.device}")
     lanes = d.shape[0]
     table, mtype = materials
     ins = (("o", o, torch.float32, (lanes, 3)),
@@ -67,13 +68,6 @@ def shade_segment_kernel(o, d, total, trans, seed, alive, rec, materials,
            ("material", rec.material, torch.int32, (lanes,)),
            ("table", table, torch.float32, (table.shape[0], 14)),
            ("mtype", mtype, torch.int32, (table.shape[0],)))
-    for name, t, dtype, shape in ins:
-        if t.dtype != dtype or tuple(t.shape) != shape \
-                or t.device != d.device:
-            raise ValueError(
-                f"{who}: {name} must be a {dtype} tensor of shape {shape} "
-                f"on {d.device}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}")
     # one origin for every lane (the camera's, expanded) is read as one row
     shared = o.stride() == (0, 1)
     args = [o if shared else o.contiguous()]
@@ -82,16 +76,8 @@ def shade_segment_kernel(o, d, total, trans, seed, alive, rec, materials,
             for _ in range(4)]
     outs += [torch.empty(lanes, dtype=torch.int64, device=d.device),
              torch.empty(lanes, dtype=torch.bool, device=d.device)]
-    lib = build.load("shade_segment")
-    stream = torch.cuda.current_stream(d.device).cuda_stream
-    rc = lib.wc_shade_segment(*(t.data_ptr() for t in args + outs), lanes,
-                              0 if shared else 3, int(sky_gradient), int(rr),
-                              stream)
-    if rc != 0:
-        raise RuntimeError("shade_segment kernel launch failed: "
-                           + lib.wc_cuda_error_string(rc).decode())
-    shade_segment_kernel.launches += 1
+    launches.launch("T1", d.device, ins,
+                    args + outs + [lanes, 0 if shared else 3,
+                                   int(sky_gradient), int(rr)],
+                    contiguous=False)
     return tuple(outs)
-
-
-shade_segment_kernel.launches = 0

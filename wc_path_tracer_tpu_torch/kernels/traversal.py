@@ -50,7 +50,7 @@ import time
 import numpy as np
 import torch
 
-from wc_path_tracer_tpu_torch.kernels import build
+from wc_path_tracer_tpu_torch.kernels import launches
 from wc_path_tracer_tpu_torch.ops import intersect as ix
 
 STACK_DEPTH = 64   # per-ray stack slots: >= the builder's 33 levels + slack
@@ -58,9 +58,7 @@ COUNT_COLS = 3     # per-ray counters: nodes popped, inner nodes entered,
 #                    triangles tested
 NODE_COLS = 16     # child-pair record: 4 float4 (see walk_tables)
 TRI_COLS = 12      # triangle record: 3 float4
-DRAW_COLS = 12     # per-draw root record: 3 float4
-STAGE_LEVELS = (6, 8)   # top levels a layout may stage in shared memory
-STAGE_RECORDS = 1024    # at most this many records (64 KiB) per CTA
+DRAW_COLS = 8      # per-draw root record: 2 float4
 
 
 def tree_depth(mesh) -> int:
@@ -113,16 +111,16 @@ class WalkTables:
 
     ``nodes`` (NR, 16): one child-pair record per inner node reached from a
     live draw's root, each draw's records contiguous in breadth-first order
-    from its root (so its top levels come first): the left child's box
-    (min xyz, max xyz), the right child's, then per child its reference --
-    the child's record id if it is inner, -2 - its bank-global first index
-    if it is a leaf -- and its index count (0 = inner).
+    from its root: the left child's box (min xyz, max xyz), the right
+    child's, then per child its reference -- the child's record id if it is
+    inner, -2 - its bank-global first index if it is a leaf -- and its
+    index count (0 = inner).
     ``tris`` (T, 12): one record per triangle slot of the bank: its three
     vertices, already rebased by its draw's vertex offset, in columns 0:3,
     4:7 and 8:11; column 3 holds how many triangles of its leaf the walk
     tests from this slot on (slots no leaf reaches are zero).
-    ``draws`` (D, 12): per live draw its root's box, its reference and
-    count as a child's, and the records in its top 6 and top 8 levels.
+    ``draws`` (D, 8): per live draw its root's box, and its reference and
+    count as a child's.
     """
 
     nodes: torch.Tensor
@@ -130,7 +128,6 @@ class WalkTables:
     draws: torch.Tensor
     depth: int               # levels of the deepest tree
     max_leaf_tris: int
-    top_records: dict        # {levels: records in every draw's top levels}
     build_s: float           # host + device seconds of the packing
 
 
@@ -148,8 +145,8 @@ def _ints(x, device):
 def _node_order(mesh):
     """One host pass over the live draws' trees, breadth first from each
     root -> (inner node ids in record order, their draws, leaf node ids,
-    their draws, inner nodes above levels STAGE_LEVELS per draw, levels of
-    the deepest tree, and the host copies it read)."""
+    their draws, levels of the deepest tree, and the host copies it
+    read)."""
     left = mesh.bvh_left.cpu().numpy().astype(np.int64)
     count = mesh.bvh_count.cpu().numpy().astype(np.int64)
     N = left.shape[0]
@@ -158,10 +155,9 @@ def _node_order(mesh):
     seen = np.zeros(N, bool)
     depth = 0
     inner, inner_d, leaf, leaf_d = [], [], [], []
-    top = np.zeros((nd, len(STAGE_LEVELS)), np.int64)
     for d in range(nd):
         frontier = node_off[d:d + 1]
-        level = n_d = 0
+        level = 0
         while frontier.size:
             if level >= STACK_DEPTH or (frontier < 0).any() \
                     or (frontier >= N).any():
@@ -173,33 +169,26 @@ def _node_order(mesh):
                 raise ValueError("walk_tables: a node of this bank is reached "
                                  "twice (the tables must form trees)")
             seen[frontier] = True
-            for j, L in enumerate(STAGE_LEVELS):
-                if level == L:
-                    top[d, j] = n_d
             is_leaf = count[frontier] > 0
             inner.append(frontier[~is_leaf])
             inner_d.append(np.full(int((~is_leaf).sum()), d))
             leaf.append(frontier[is_leaf])
             leaf_d.append(np.full(int(is_leaf.sum()), d))
-            n_d += int((~is_leaf).sum())
             child = node_off[d] + left[frontier[~is_leaf]]
             frontier = np.stack([child, child + 1], 1).reshape(-1)
             level += 1
         depth = max(depth, level)
-        for j, L in enumerate(STAGE_LEVELS):
-            if level <= L:
-                top[d, j] = n_d
     cat = (lambda xs: np.concatenate(xs) if xs else np.zeros(0, np.int64))
     return (cat(inner).astype(np.int64), cat(inner_d).astype(np.int64),
-            cat(leaf).astype(np.int64), cat(leaf_d).astype(np.int64), top,
-            depth, left, count, node_off)
+            cat(leaf).astype(np.int64), cat(leaf_d).astype(np.int64), depth,
+            left, count, node_off)
 
 
 def _pack(mesh) -> WalkTables:
     t_start = time.perf_counter()
     check_stack_depth(mesh)
     dev = mesh.bvh_min.device
-    inner, inner_d, leaf, leaf_d, top, depth, left, count, node_off = \
+    inner, inner_d, leaf, leaf_d, depth, left, count, node_off = \
         _node_order(mesh)
     nd = node_off.shape[0]
     index_off = mesh.draw_index_offset[:nd].cpu().numpy().astype(np.int64)
@@ -271,15 +260,11 @@ def _pack(mesh) -> WalkTables:
     root_ref, root_cnt = child_ref(node_off, d_all)
     draws = torch.cat([
         gather(mesh.bvh_min, node_off), gather(mesh.bvh_max, node_off),
-        _ints(np.stack([root_ref, root_cnt, top[:, 0], top[:, 1],
-                        np.zeros(nd), np.zeros(nd)], 1).reshape(-1, 6),
-              dev)], dim=1)
+        _ints(np.stack([root_ref, root_cnt], 1).reshape(-1, 2), dev)], dim=1)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return WalkTables(
         nodes=nodes, tris=tris, draws=draws, depth=depth, max_leaf_tris=mlt,
-        top_records={L: int(top[:, j].sum())
-                     for j, L in enumerate(STAGE_LEVELS)},
         build_s=time.perf_counter() - t_start)
 
 
@@ -541,74 +526,18 @@ def bvh_walk_stackless_plain(origin, direction, t_init, mesh):
 
 # -- the kernel ---------------------------------------------------------------
 
-SCHEDULES = ("grid", "batch", "refill")
-
-
-@dataclasses.dataclass(frozen=True)
-class WalkLayout:
-    """How the kernel is launched (each choice keeps every ray's result).
-
-    ``schedule``: "grid", one thread per ray in ``blockIdx`` order;
-    "batch", a few CTAs per SM whose warps take 32 lanes at a time from a
-    global counter and walk each batch's rays to their ends; "refill", the
-    same warps, but a lane whose ray is done takes the next ray once a
-    quarter of its warp is idle.  ``shared_stack``: the (ref, t0) stack in
-    shared memory, else in local memory; ``top_levels``: stage each draw's
-    top 6 or 8 levels of records in shared memory per CTA (0: none);
-    ``reorder``: walk the rays in order of a direction-octant +
-    origin-Morton key (a sort in the wrapper)."""
-
-    schedule: str = "refill"
-    shared_stack: bool = False
-    top_levels: int = 0
-    reorder: bool = False
-
-
-def walk_layout() -> WalkLayout:
-    """The layout ``bvh_walk_kernel`` launches (chosen on the card; see
-    PERF.md's B3 layout table)."""
-    return WalkLayout()
-
-
-def _spread3(x):
-    """The low 10 bits of ``x`` spread to every third bit."""
-    x = (x | (x << 16)) & 0x030000FF
-    x = (x | (x << 8)) & 0x0300F00F
-    x = (x | (x << 4)) & 0x030C30C3
-    return (x | (x << 2)) & 0x09249249
-
-
-def ray_order_key(origin, direction):
-    """Direction octant (3 bits), then the 30-bit Morton code of the origin
-    quantised to 1024 steps over the rays' own bounds, as one int64."""
-    lo = origin.amin(0)
-    span = (origin.amax(0) - lo).clamp_min(1e-30)
-    q = ((origin - lo) / span * 1023.0).nan_to_num(0.0).long().clamp(0, 1023)
-    morton = _spread3(q[:, 0]) | (_spread3(q[:, 1]) << 1) \
-        | (_spread3(q[:, 2]) << 2)
-    octant = (direction < 0).long()
-    octant = octant[:, 0] | (octant[:, 1] << 1) | (octant[:, 2] << 2)
-    return (octant << 30) | morton
-
-
-def ray_order(origin, direction):
-    """(R,) int32 lane ids sorted by ``ray_order_key`` (stable)."""
-    return torch.argsort(ray_order_key(origin, direction), stable=True) \
-        .to(torch.int32)
-
-
 def bvh_walk_kernel(origin, direction, t_init, mesh, counts=None,
                     alive=None):
     """Closest triangle hit over every draw (``bvh_walk_plain``'s contract).
 
-    On CUDA tensors this launches the Hopper kernel (csrc/bvh_walk.cu) on
-    the current stream without synchronising, once per call, and counts
-    the launch in ``bvh_walk_kernel.launches``; on CPU tensors it runs the
-    plain walk.  With ``alive`` the kernel walks only the live lanes (its
-    persistent warps queue them as they take lanes; no host sync, no pass
-    before the launch).  Any other device, dtype, shape or layout raises,
-    and so does a bank ``walk_tables`` cannot pack (its first walk packs
-    it: host copies of the tables, once per bank).
+    On CUDA tensors this launches the Hopper kernel (csrc/bvh_walk.cu)
+    through ``launches.launch``, on the current stream without
+    synchronising, once per call, counted under B3; on CPU tensors it runs
+    the plain walk.  With ``alive`` the kernel walks only the live lanes
+    (its persistent warps queue them as they take lanes; no host sync, no
+    pass before the launch).  Any other device, dtype, shape or layout
+    raises, and so does a bank ``walk_tables`` cannot pack (its first walk
+    packs it: host copies of the tables, once per bank).
     """
     if origin.device.type == "cpu":
         return bvh_walk_plain(origin, direction, t_init, mesh, counts, alive)
@@ -617,51 +546,16 @@ def bvh_walk_kernel(origin, direction, t_init, mesh, counts=None,
     tables = walk_tables(mesh)
     R = origin.shape[0]
     f32, i32 = torch.float32, torch.int32
-    for name, t, dtype, shape in (
-            ("origin", origin, f32, (R, 3)),
-            ("direction", direction, f32, (R, 3)),
-            ("t_init", t_init, f32, (R,)),
-            ("counts", counts, i32, (R, COUNT_COLS)),
-            ("alive", alive, torch.bool, (R,)),
-            ("walk tables", tables.nodes, f32, tuple(tables.nodes.shape))):
-        if t is None:
-            continue
-        if t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous() or t.device != origin.device:
-            raise ValueError(
-                f"bvh_walk_kernel: {name} must be a contiguous {dtype} tensor "
-                f"of shape {shape} on {origin.device}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device} contiguous={t.is_contiguous()}")
+    ins = (("origin", origin, f32, (R, 3)),
+           ("direction", direction, f32, (R, 3)),
+           ("t_init", t_init, f32, (R,)),
+           ("counts", counts, i32, (R, COUNT_COLS)),
+           ("alive", alive, torch.bool, (R,)),
+           ("walk tables", tables.nodes, f32, tables.nodes.shape))
     t_out = torch.empty_like(t_init)
     off = torch.empty(R, dtype=i32, device=origin.device)
-    if R == 0:
-        return t_out, off
-    lay = walk_layout()
-    if lay.top_levels not in (0,) + STAGE_LEVELS \
-            or lay.schedule not in SCHEDULES:
-        raise ValueError(f"bvh_walk_kernel: no layout {lay}")
-    lanes = ray_order(origin, direction) if lay.reorder else None
-    counter = torch.zeros(1, dtype=i32, device=origin.device) \
-        if lay.schedule != "grid" else None
-    stage = min(tables.top_records.get(lay.top_levels, 0), STAGE_RECORDS)
-    lib = build.load("bvh_walk")
-    stream = torch.cuda.current_stream(origin.device).cuda_stream
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
-    rc = lib.wc_bvh_walk(
-        origin.data_ptr(), direction.data_ptr(), t_init.data_ptr(),
-        tables.nodes.data_ptr(), tables.tris.data_ptr(),
-        tables.draws.data_ptr(), ptr(lanes), ptr(alive), ptr(counter),
-        t_out.data_ptr(), off.data_ptr(), ptr(counts),
-        R, tables.draws.shape[0], tables.depth, lay.top_levels, stage,
-        SCHEDULES.index(lay.schedule) | int(lay.shared_stack) << 2, stream)
-    if rc != 0:
-        raise RuntimeError("bvh_walk kernel launch failed: "
-                           + lib.wc_cuda_error_string(rc).decode())
-    bvh_walk_kernel.launches += 1
+    counter = torch.zeros(1, dtype=i32, device=origin.device)
+    launches.launch("B3", origin.device, ins, [
+        origin, direction, t_init, tables.nodes, tables.tris, tables.draws,
+        alive, counter, t_out, off, counts, R, tables.draws.shape[0]])
     return t_out, off
-
-
-bvh_walk_kernel.launches = 0

@@ -737,29 +737,16 @@ def sample_direct_light(scene: Scene, rec: HitRecord, seed, mask,
 
 def _gather_material(materials, mid):
     """Per-ray material fields (pathTracer.comp:251): one gather of the
-    column-stacked (M, 14) float table (``take_rows``) and the type ids."""
+    packed (M, 14) float table (``shade.pack_materials``, its columns
+    ``shade.COLUMNS``; ``take_rows``) and the type ids."""
     mid = mid.long()
-    g = take_rows(torch.cat([
-        materials.albedo,                          # 0:3
-        materials.emission,                        # 3:6
-        materials.emission_strength[:, None],      # 6
-        materials.roughness[:, None],              # 7
-        materials.metallic[:, None],               # 8
-        materials.absorption,                      # 9:12
-        materials.absorption_strength[:, None],    # 12
-        materials.ior[:, None],                    # 13
-    ], 1), mid)
-    return dict(
-        mtype=materials.mtype[mid],
-        albedo=g[:, 0:3],
-        emission=g[:, 3:6],
-        emission_strength=g[:, 6],
-        roughness=g[:, 7],
-        metallic=g[:, 8],
-        absorption=g[:, 9:12],
-        absorption_strength=g[:, 12],
-        ior=g[:, 13],
-    )
+    table, mtype = shade.pack_materials(materials)
+    g = take_rows(table, mid)
+    out, col = dict(mtype=mtype[mid]), 0
+    for name, width in shade.COLUMNS:
+        out[name] = g[:, col:col + width] if width > 1 else g[:, col]
+        col += width
+    return out
 
 
 @dataclasses.dataclass
