@@ -49,6 +49,12 @@ closest-hit search, against ``golden._brute_search`` on every query of a
 1024 x 1024 frame of both serving boxes (the Cornell box, 5 queries; the
 full-BSDF box with Russian roulette and compaction, 9): its four outputs
 bit for bit, both timed, H1 against its operations bound.
+Its [post] phase holds P1 (kernels/csrc/post_frame.cu), the serving
+post-processing, against ``render/renderer.py::_finalize`` at the serving
+cells' shapes (1024 x 1024 and 512 x 512, bloom, ACES, gamma 2.2) on a
+seeded HDR image: the uint8 image bit for bit, its launches, its device
+time (CUDA events) against its bytes bound and the plain chain's, and the
+host time of one call.
 
 Its [train] phase drives the training path: the bench's fwd+bwd step
 (``parallel.render.scene_loss_grad`` with the bench loss, mean(img^2) over
@@ -139,8 +145,8 @@ import torch
 from wc_path_tracer_tpu_torch import RenderConfig, bench
 from wc_path_tracer_tpu_torch.io.image import read_png
 from perfbench import peaks, trace
-from wc_path_tracer_tpu_torch.kernels import (brute, build, cluster, shade,
-                                              traversal)
+from wc_path_tracer_tpu_torch.kernels import (brute, build, cluster, post,
+                                              shade, traversal)
 from wc_path_tracer_tpu_torch.kernels.launches import (KERNELS, library,
                                                        named, read_counts,
                                                        reset_counts, zeros)
@@ -195,6 +201,9 @@ T1_FIELDS = ("o", "d", "total", "trans", "seed", "alive")
 # the slot tables once
 OPS_PER_SPHERE = 25
 H1_FIELDS = ("t_s", "s_idx", "t_tri", "t_idx")
+# [post]: the serving cells' post settings (perfbench's serve_edit_orbit)
+POST = dict(tonemap="aces", gamma=2.2, bloom=True, threshold=1.0, knee=0.1,
+            strength=1.0)
 PLANE_T_RTOL = 5e-5          # B2 vs MT t: see mxu_phase
 # sweep layouts timed against each other: (CTAs per ray block, threads per
 # ray), for B1 and for B2
@@ -710,6 +719,93 @@ def brute_phase(smi, cscene, cmats, ccfg):
                 "sweep",
         per_query=box, bsdf=mean_entry(bsdf), bsdf_per_query=bsdf,
         card=smi)
+
+
+def post_bytes(h, w):
+    """Bytes one P1 call with bloom must move at (h, w): the HDR image read
+    and the uint8 image written once, each pyramid level written once and
+    read once."""
+    levels = sum(y * x for y, x in post.pyramid(h, w))
+    return h * w * 3 * 4 + h * w * 3 + 2 * levels * 3 * 4
+
+
+def post_hdr(h, w, seed):
+    """A seeded (h, w, 3) HDR image on the card: values across zero, the
+    bloom knee and the prefilter's clamp at 20."""
+    r = np.random.default_rng(seed)
+    x = r.choice([-0.3, 0.0, 0.02, 0.3, 0.9, 1.0, 1.1, 3.0, 25.0],
+                 size=(h, w, 3)) * r.uniform(0.97, 1.03, (h, w, 3))
+    return torch.tensor(x, dtype=torch.float32, device="cuda")
+
+
+def post_cell(smi, size):
+    """P1 against ``_finalize`` on a seeded size x size HDR image with the
+    serving cells' settings: the uint8 image bit for bit, the launches of
+    one call, device ms of both (CUDA events) against P1's bytes bound,
+    and the host time of one P1 call -> one record."""
+    img = post_hdr(size, size, seed=size)
+    args = [POST[k] for k in ("tonemap", "gamma", "bloom", "threshold",
+                              "knee", "strength")]
+
+    def kernel():
+        return post.post_frame_kernel(img, *args)
+
+    def plain():
+        return renderer_module._finalize(img, *args)
+
+    before = read_counts()["P1"]
+    got = kernel()
+    n_launch = read_counts()["P1"] - before
+    want = plain()
+    torch.cuda.synchronize()
+    differ = bits_differ(got, want)
+    check(not differ, f"[post] {size}^2: P1 equals _finalize bit for bit "
+          f"in the uint8 image ({differ or 'none differ'})")
+    check(n_launch == 2 * len(post.pyramid(size, size)) <= 16,
+          f"[post] {size}^2: one call launches P1 {n_launch} times (the "
+          "pyramid's levels down and up, and the composite)")
+    ms = event_ms(kernel, 20)
+    plain_ms = event_ms(plain, 3)
+    host_us = []
+    for _ in range(30):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernel()
+        host_us.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    host_us = sorted(host_us)[len(host_us) // 2]
+    nb = post_bytes(size, size)
+    bound_s, bound_by = peaks.bound(0, nb)
+    bound_ms = bound_s * 1e3
+    profile = device_profile(smi, f"[post] P1 {size}^2", kernel, top=4)
+    print(f"[post] {size}^2 aces gamma 2.2 bloom: P1 {ms:.4f} ms a call "
+          f"(CUDA events), host {host_us:.1f} us a call (median of 30), "
+          f"{n_launch} launches; plain {plain_ms:.3f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {nb / 1e6:.2f} MB), "
+          f"{100 * bound_ms / ms:.1f} % of it; on {smi}", flush=True)
+    return dict(size=size, launches=n_launch, bitwise=not differ, ms=ms,
+                plain_ms=plain_ms, host_us=host_us, bytes=nb,
+                bound_ms=bound_ms, bound_by=bound_by,
+                profile_launches=profile["launches"],
+                profile_device_ms=profile["device_ms"])
+
+
+def post_phase(smi):
+    """The [post] phase: P1 against its plain twin at the serving cells'
+    shapes (1024^2 and 512^2) -> P1's entry of the kernels line."""
+    with torch.no_grad():
+        cells = [post_cell(smi, size) for size in (1024, 512)]
+    return dict(
+        name="post_frame", route="cuda",
+        source="wc_path_tracer_tpu_torch/kernels/csrc/post_frame.cu",
+        replaces=None, max_abs_err=0.0,
+        **{k: cells[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "host_us", "launches")},
+        library_ms=None,
+        ms_note="one call (bloom, ACES, gamma 2.2) on a seeded 1024^2 HDR "
+                "image; replaces no TPU kernel: XLA fuses the JAX "
+                "package's jnp bloom and tonemaps",
+        per_size=cells, card=smi)
 
 
 def walk_expected(twin, t0, alive):
@@ -1852,10 +1948,16 @@ def serve_phase(smi, scene, cam, cscene, ccam):
         check(edits[label], f"[serve] after {label} the next image equals a "
               "fresh frame 0 bit for bit")
 
-    # post-processing: bloom, ACES, gamma 2.2 -> uint8 -> PNG -> read back
+    # post-processing: bloom, ACES, gamma 2.2 -> uint8 -> PNG -> read back,
+    # on the card through P1
     r.output()
+    reset_counts()
     out, s = sync_time(r.output)
     post_ms = s * 1e3
+    post_launches = read_counts()
+    check(post_launches == zeros(P1=2 * len(post.pyramid(512, 512))),
+          f"[serve] output() launched {post_launches} (P1: the pyramid's "
+          "levels down and up, and the composite)")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "serve.png")
         r.save_png(path)
@@ -1877,7 +1979,8 @@ def serve_phase(smi, scene, cam, cscene, ccam):
           f"{profile['device_ms'] / profile['wall_ms']:.1%} busy; the "
           f"sweep's tables (built per frame) {tables_ms:.2f} ms = "
           f"{tables_ms / frame_ms:.1%} of a frame; output() {post_ms:.2f} "
-          f"ms; launches {counts}, on {smi}", flush=True)
+          f"ms; launches {counts}, output() {named(post_launches)}, on "
+          f"{smi}", flush=True)
 
     ccfg = RenderConfig(**CORNELL)
     rc = Renderer(cscene, ccam, ccfg)
@@ -1900,7 +2003,8 @@ def serve_phase(smi, scene, cam, cscene, ccam):
           flush=True)
     return dict(frame_ms=frame_ms, step_ms=times, launches=counts,
                 tables_ms=tables_ms, tables_share=tables_ms / frame_ms,
-                post_ms=post_ms, post_lsb_vs_cpu=lsb, edits=edits,
+                post_ms=post_ms, post_launches=post_launches,
+                post_lsb_vs_cpu=lsb, edits=edits,
                 profile=profile, cornell_frame_ms=cornell_ms,
                 cornell_profile=cprofile, card=smi)
 
@@ -2904,6 +3008,9 @@ def main() -> int:
     # -- 5c. H1, the brute-force closest-hit search, against its twin ------
     h1 = brute_phase(smi, cscene, cmats, ccfg)
 
+    # -- 5d. P1, the serving post-processing, against its twin ------------
+    p1 = post_phase(smi)
+
     # -- 6. the "pallas" path: the split bunny through the BVH walk ---------
     b3, split_scene = pallas_phase(
         smi, cfg, scene, [line.strip() for line in logs.get(
@@ -3051,7 +3158,8 @@ def main() -> int:
         "scene": {k: v for k, v in scene_rec.items() if k != "B3"},
         "bench_launches": bench_launches(bench_rec, "cluster_sweep"),
         "bench": {k: v for k, v in bench_rec.items() if k != "B3"},
-    }, b2, b3, t1, h1]}))
+    }, b2, b3, t1, h1,
+        dict(p1, serve_launches=serving["post_launches"]["P1"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

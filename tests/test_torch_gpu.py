@@ -17,7 +17,7 @@ import torch
 
 from wc_path_tracer_tpu_torch import RenderConfig
 from wc_path_tracer_tpu_torch.kernels import (brute, cluster, launches,
-                                              shade, traversal)
+                                              post, shade, traversal)
 from wc_path_tracer_tpu_torch.models import builtin
 from wc_path_tracer_tpu_torch.models.procedural import (bumpy_sphere,
                                                          bunny_gltf_scene,
@@ -669,6 +669,127 @@ def test_post_on_card_matches_cpu():
     for fn in (bloom.bloom, bloom.bloom_pyramid, bloom.composite):
         torch.testing.assert_close(fn(img.cuda()).cpu(), fn(img), rtol=1e-5,
                                    atol=1e-6)
+
+
+# P1's sizes: the serving cells' 1024^2 and 512^2, an odd size and one
+# whose pyramid is a single level (a side <= 4)
+POST_SIZES = {"1024": (1024, 1024), "512": (512, 512), "37x53": (37, 53),
+              "3x5": (3, 5)}
+# launches of one post_frame_kernel call with bloom: the levels down and up
+# and the composite
+POST_LAUNCHES = {"1024": 16, "512": 14, "37x53": 8, "3x5": 2}
+
+
+def _post_hdr(h, w, seed):
+    """An (h, w, 3) HDR image seeded from numpy whose values span zero
+    (negatives and exact zeros), the bloom knee (0.9-1.1) and the
+    prefilter's clamp (above 20)."""
+    r = np.random.default_rng(seed)
+    anchor = r.choice([-0.3, 0.0, 0.02, 0.3, 0.9, 0.95, 1.0, 1.05, 1.1, 3.0,
+                       19.0, 25.0, 80.0], size=(h, w, 3))
+    x = anchor * r.uniform(0.97, 1.03, (h, w, 3))
+    x[r.random((h, w, 3)) < 0.03] = 0.0
+    return torch.tensor(x, dtype=torch.float32, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bloom", [True, False], ids=["bloom", "no-bloom"])
+@pytest.mark.parametrize("size", list(POST_SIZES))
+def test_post_kernel_equals_finalize(size, bloom):
+    """P1 against ``_finalize`` on the card, bit for bit in the uint8
+    image, for every tonemap at gamma 1.0 and 2.2 (and ACES with other
+    bloom settings); each call launches the pyramid's levels down and up
+    and the composite (the composite alone without bloom) and counts its
+    pixels under ``post.pixels``."""
+    _need_card()
+    from wc_path_tracer_tpu_torch.ops import tonemap as tm
+    from wc_path_tracer_tpu_torch.render.renderer import _finalize
+    h, w = POST_SIZES[size]
+    img = _post_hdr(h, w, seed=h * 7 + w)
+    cases = [(name, gamma, 1.0, 0.1, 1.0) for name in tm.TONEMAPS
+             for gamma in (1.0, 2.2)]
+    cases.append(("aces", 2.2, 0.8, 0.25, 0.6))
+    per_call = POST_LAUNCHES[size] if bloom else 1
+    assert per_call == (2 * len(post.pyramid(h, w)) if bloom else 1)
+    for name, gamma, threshold, knee, strength in cases:
+        want = _finalize(img, name, gamma, bloom, threshold, knee, strength)
+        before = launches.read_counts()
+        with profiling.counting() as counts:
+            got = post.post_frame_kernel(img, name, gamma, bloom, threshold,
+                                         knee, strength)
+        torch.cuda.synchronize()
+        assert launches.read_counts() == dict(
+            before, P1=before["P1"] + per_call)
+        assert counts == {"post.pixels": h * w}
+        assert got.dtype == torch.uint8 and got.shape == (h, w, 3)
+        assert _bits_differ(got, want) is None, (name, gamma, threshold,
+                                                 _bits_differ(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", list(POST_SIZES))
+def test_post_kernel_pyramid_equals_bloom_pyramid(size):
+    """P1's bloom levels, down and up (``post._pyramid``, the launches
+    before the composite), against ``ops/bloom.py::bloom_pyramid`` on the
+    card, bit for bit in float32."""
+    _need_card()
+    import ctypes
+    from wc_path_tracer_tpu_torch.ops import bloom as bl
+    h, w = POST_SIZES[size]
+    img = _post_hdr(h, w, seed=h + w)
+    for threshold, knee in ((1.0, 0.1), (0.8, 0.25)):
+        consts = post.constants("none", 1.0, threshold, knee, 1.0)[0]
+        got = post._pyramid(img, ctypes.addressof(consts), ())
+        want = bl.bloom_pyramid(img, threshold, knee)
+        torch.cuda.synchronize()
+        assert _bits_differ(got, want) is None, (threshold, knee)
+
+
+@pytest.mark.gpu
+def test_renderer_output_on_card_takes_post_kernel(tmp_path):
+    """``Renderer.output`` on the card launches P1 (bloom: the levels and
+    the composite), counts ``post.pixels`` and gives ``_finalize``'s
+    image, bit for bit; ``save_png`` writes the same pixels."""
+    _need_card()
+    from wc_path_tracer_tpu_torch.io.image import read_png
+    from wc_path_tracer_tpu_torch.render.renderer import _finalize
+    scene, cam = bunny_like_scene(2, device="cuda")
+    cfg = RenderConfig(width=96, height=64, max_bounces=2, bloom=True,
+                       tonemap="aces", gamma=2.2)
+    r = Renderer(scene, cam, cfg)
+    r.step(2)
+    before = launches.read_counts()
+    with profiling.counting() as counts:
+        out = r.output()
+    assert launches.read_counts() == dict(
+        before, P1=before["P1"] + 2 * len(post.pyramid(64, 96)))
+    assert counts == {"post.pixels": 64 * 96}
+    want = _finalize(r.image, "aces", 2.2, True, cfg.bloom_threshold,
+                     cfg.bloom_knee, cfg.bloom_strength).cpu().numpy()
+    assert np.array_equal(out, want)
+    for kw in (dict(tonemap="pbr_neutral"), dict(gamma=1.0)):
+        want = _finalize(r.image, kw.get("tonemap", "aces"),
+                         kw.get("gamma", 2.2), True, cfg.bloom_threshold,
+                         cfg.bloom_knee, cfg.bloom_strength).cpu().numpy()
+        assert np.array_equal(r.output(**kw), want), kw
+    r.save_png(str(tmp_path / "a.png"))
+    assert np.array_equal(read_png(str(tmp_path / "a.png")), out)
+
+
+@pytest.mark.gpu
+def test_post_kernel_wrapper_rejects_bad_inputs():
+    """P1 refuses an image of another dtype, shape or layout, naming the
+    wrapper and the input, and an unknown tonemap as ``tonemap.apply``
+    does; nothing is launched."""
+    _need_card()
+    img = _post_hdr(8, 8, seed=1)
+    before = launches.read_counts()
+    for bad in (img.double(), img[..., :2], img.transpose(0, 1)):
+        with pytest.raises(ValueError, match="post_frame_kernel: img must"):
+            post.post_frame_kernel(bad, "aces", 2.2, True, 1.0, 0.1, 1.0)
+    with pytest.raises(ValueError, match="unknown tonemap 'nope'"):
+        post.post_frame_kernel(img, "nope", 2.2, True, 1.0, 0.1, 1.0)
+    assert launches.read_counts() == before
 
 
 @pytest.mark.gpu

@@ -16,18 +16,21 @@ import pytest
 import torch
 
 from wc_path_tracer_tpu_torch.kernels import (brute, build, cluster,
-                                              launches, shade, traversal)
+                                              launches, post, shade,
+                                              traversal)
 
 METRICS = Path(__file__).resolve().parents[1] / "perfbench" / "metrics"
-# the one __global__ kernel each library defines (B1's and B2's in the
-# sweep skeleton they both include), and the device-trace metric that
-# reads its time
-GLOBALS = {"B1": "sweep_kernel", "B2": "sweep_kernel",
-           "B3": "bvh_walk_kernel", "T1": "shade_segment",
-           "H1": "brute_hit"}
+# the __global__ kernels each library defines (B1's and B2's in the sweep
+# skeleton they both include; P1's three stages), and the device-trace
+# metric that reads their time (none reads P1's: post_ms.serve times
+# Renderer.output() between CUDA events)
+GLOBALS = {"B1": ("sweep_kernel",), "B2": ("sweep_kernel",),
+           "B3": ("bvh_walk_kernel",), "T1": ("shade_segment",),
+           "H1": ("brute_hit",),
+           "P1": ("post_down", "post_up", "post_composite")}
 READ_BY = {"B1": "hit_kernel_roofline", "B2": "hit_kernel_roofline",
            "B3": "hit_kernel_roofline", "T1": "shade_ms",
-           "H1": "brute_hit_ms"}
+           "H1": "brute_hit_ms", "P1": None}
 
 
 def _metric_matches(name):
@@ -43,24 +46,26 @@ def _metric_matches(name):
 def test_kernel_is_registered_and_named_for_its_metric(tag):
     """Each kernel is counted under its tag and named by its library, its
     wrapper is ``<library>_kernel``, and its source (with the headers it
-    includes) defines one ``__global__`` kernel, whose name only the
-    device-trace metric meant for it matches: a T1 or H1 kernel holds none
-    of the closest-hit roofline's matches."""
+    includes) defines its ``__global__`` kernels (one, or P1's three
+    stages), whose names only the device-trace metric meant for them
+    matches: a T1, H1 or P1 kernel holds none of the closest-hit
+    roofline's matches."""
     k = launches.KERNELS[tag]
     assert k.tag == tag and k.entry == f"wc_{k.library}"
     assert list(launches.read_counts()) == list(launches.KERNELS)
     assert launches.named(launches.zeros(**{tag: 3}))[k.library] == 3
     assert any(hasattr(m, f"{k.library}_kernel")
-               for m in (brute, cluster, shade, traversal))
+               for m in (brute, cluster, post, shade, traversal))
     src = build.source(k.library).read_text()
     src += "".join((build.CSRC / h).read_text()
                    for h in re.findall(r'#include "([^"]+)"', src))
     kernels = re.findall(r"__global__ void (?:__launch_bounds__\(\w+\) )?"
                          r"(\w+)\(", src)
-    assert kernels == [GLOBALS[tag]]
-    for metric in set(READ_BY.values()):
-        assert any(m in kernels[0] for m in _metric_matches(metric)) \
-            == (metric == READ_BY[tag]), metric
+    assert kernels == list(GLOBALS[tag])
+    for metric in set(READ_BY.values()) - {None}:
+        for kernel in kernels:
+            assert any(m in kernel for m in _metric_matches(metric)) \
+                == (metric == READ_BY[tag]), (metric, kernel)
 
 
 def test_zero_map_names_every_kernel():

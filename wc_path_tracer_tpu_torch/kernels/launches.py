@@ -3,17 +3,17 @@ path every wrapper launches through.
 
 ``KERNELS`` lists each kernel once under its tag in the kernel tables
 (B1-B3, the closest-hit searches of the sweeps and the BVH walk; T1, the
-transport's shading; H1, the brute-force closest-hit search): its library
-(``csrc/<library>.cu``, built by ``build.load``, and its name in the launch
-maps that bench.py, cli.py and dp_check.py print), its C entry and that
-entry's ctypes arguments.  Every entry returns a CUDA error code (0 on
+transport's shading; H1, the brute-force closest-hit search; P1, the
+serving post-processing): its library (``csrc/<library>.cu``, built by
+``build.load``, and its name in the launch maps that bench.py, cli.py and
+dp_check.py print), its C entry and that entry's ctypes arguments.  Every entry returns a CUDA error code (0 on
 success) and every library exports ``wc_cuda_error_string``, which
 ``build.load`` binds.
 
 A wrapper checks its inputs and launches through ``launch``, which counts
 the launch under the kernel's tag.  On CPU tensors a wrapper runs its
-plain twin (B1-B3) or refuses them (T1, H1: ``golden`` takes the twin), and
-nothing is counted.
+plain twin (B1-B3) or refuses them (T1, H1: ``golden`` takes the twin; P1:
+``Renderer.output`` takes ``_finalize``), and nothing is counted.
 """
 
 from __future__ import annotations
@@ -66,6 +66,12 @@ KERNELS = {k.tag: k for k in (
     # row stride, sphere slots, triangle slots, near root only, stream
     Kernel("H1", "brute_hit", "wc_brute_hit",
            (_P,) * 14 + (_I,) * 5 + (_P,)),
+    # one stage of the post chain: its input, its output (or in-out), the
+    # uint8 image, the host array of float32 scalars, the stage, the input's
+    # and the output's height and width, the tonemap id, the gamma's pow
+    # mode, stream
+    Kernel("P1", "post_frame", "wc_post_frame",
+           (_P,) * 4 + (_I,) * 7 + (_P,)),
 )}
 
 _counts = dict.fromkeys(KERNELS, 0)

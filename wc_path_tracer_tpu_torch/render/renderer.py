@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from wc_path_tracer_tpu_torch.kernels import post
 from wc_path_tracer_tpu_torch.ops import bloom as bl
 from wc_path_tracer_tpu_torch.ops import tonemap as tm
 from wc_path_tracer_tpu_torch.render import dispatch, golden
@@ -229,13 +230,19 @@ class Renderer:
                gamma: Optional[float] = None) -> np.ndarray:
         """Bloomed (if ``cfg.bloom``), tonemapped, gamma'd uint8 image
         (H, W, 3) on the host; tonemap and gamma default to the cfg's (the
-        reference displays raw linear HDR, quirk §2.4(9))."""
+        reference displays raw linear HDR, quirk §2.4(9)).  On the card the
+        post kernels P1 make it (``kernels/post.py``), elsewhere their
+        plain twin ``_finalize``: the same bits."""
         name = tonemap if tonemap is not None else self.cfg.tonemap
         g = float(gamma if gamma is not None else self.cfg.gamma)
         c = self.cfg
+        args = (name, g, c.bloom, c.bloom_threshold, c.bloom_knee,
+                c.bloom_strength)
         with stage("post"):
-            out = _finalize(self.image, name, g, c.bloom, c.bloom_threshold,
-                            c.bloom_knee, c.bloom_strength)
+            if post.on_card(self.image):
+                out = post.post_frame_kernel(self.image, *args)
+            else:
+                out = _finalize(self.image, *args)
         return out.cpu().numpy()
 
     def save_png(self, path: str, **kw):

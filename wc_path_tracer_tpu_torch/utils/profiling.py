@@ -46,9 +46,10 @@ SPANS = (
 # block-rounded prefix handed to the bounce; at each launch of the fused
 # shading kernel T1 (golden._bounce_fused): the lanes handed to it; at each
 # launch of the brute-force search H1 (golden.intersect_scene_brute): the
-# lanes handed to it
+# lanes handed to it; at each call of the post kernels P1
+# (kernels/post.py::post_frame_kernel): the pixels handed to them
 COUNTERS = ("intersect.lanes", "intersect.alive", "compact.alive",
-            "compact.kept", "shade.lanes", "brute.lanes")
+            "compact.kept", "shade.lanes", "brute.lanes", "post.pixels")
 
 _OFF = contextlib.nullcontext()
 _totals = contextvars.ContextVar("profiling_totals", default=None)
