@@ -3,7 +3,7 @@
 served frame, on one CUDA card.
 
     python3 tools/torch_span_probe.py [--cells bunny-serve cornell-serve
-        bsdf-serve] [--out span_probe.json]
+        bsdf-serve bunny-box-nee-serve] [--out span_probe.json]
 
 For each serving cell of BENCHMARK.json it builds the cell's scene and
 ``Renderer`` as the benchmark does, serves a few frames (``step(1)`` then
@@ -30,6 +30,12 @@ the share of the compacted bounces' lanes that were dead padding) and
 and ``brute_hit_ms`` (of the brute-force search H1, ``brute_hit``),
 beside the profiled frame's live lanes entering each bounce
 (``golden.alive_per_bounce``, every lane marched, outside the profile).
+Under NEE it adds ``nee_ms`` and ``shadow_ms`` (device ms inside the
+``nee`` and ``shadow`` spans), ``nee_lane_share`` (100 · ``nee.lanes`` ÷
+``shadow.lanes``: the share of the shadow query's lanes that sample a
+light) and ``by_query``: the device and idle ms of each query's own spans
+(the sweep's sort, cull and kernel) under ``intersect`` and under
+``shadow``.
 The last line is one JSON object with every number beside the card's
 name and power limit.  ``--device cpu --size 32`` rehearses it on a CPU
 (there are no device operations, so the device numbers are empty).
@@ -121,6 +127,23 @@ def idle_ms(ops, host) -> dict:
     return out
 
 
+def within(ops, host, outer) -> dict:
+    """The operations launched inside span ``outer``, by innermost span
+    (device ms), and the gaps whose middle falls inside it, by innermost
+    span (idle ms): {"device_ms": {...}, "idle_ms": {...}}."""
+    union = merged((s, e) for s, e, n in host if n == outer)
+    mine = [op for op in ops if op[3] is not None and inside(op[3], union)]
+    busy = merged((s, s + d) for _, s, d, _ in ops)
+    host = sorted(host)
+    idle: dict = {}
+    for (_, end), (nxt, _) in zip(busy, busy[1:]):
+        mid = (end + nxt) / 2
+        if inside(mid, union):
+            name = innermost(host, mid)
+            idle[name] = idle.get(name, 0.0) + (nxt - end) / 1e6
+    return {"device_ms": self_ms(mine, host), "idle_ms": idle}
+
+
 def kineto(prof):
     """(device operations [(name, start, dur, host launch time or None)],
     host spans [(start, end, span)]) of a profile, in ns."""
@@ -197,6 +220,11 @@ def serve_cell(name: str, device, size) -> dict:
         if ops else None,
         brute_hit_ms=sum(d for n, _, d, _ in ops if "brute_hit" in n) / 1e6
         if ops else None,
+        nee_ms=total.get("nee"), shadow_ms=total.get("shadow"),
+        nee_lane_share=100.0 * counts["nee.lanes"] / counts["shadow.lanes"]
+        if counts.get("shadow.lanes") else None,
+        by_query={q: within(ops, host, q) for q in ("intersect", "shadow")}
+        if ops and "shadow" in total else None,
         alive_per_bounce=[int(a) for a in per_bounce])
 
 
@@ -213,7 +241,8 @@ def card(device) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cells", nargs="+",
-                    default=["bunny-serve", "cornell-serve", "bsdf-serve"])
+                    default=["bunny-serve", "cornell-serve", "bsdf-serve",
+                             "bunny-box-nee-serve"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--size", type=int, default=0,
                     help="square frame size in place of the cell's "
@@ -233,13 +262,18 @@ def main() -> int:
               f"transport_idle_ms {r['transport_idle_ms']}, "
               f"live_lane_share {r['live_lane_share']}, compact_ms "
               f"{r['compact_ms']}, padding_share {r['padding_share']}, "
-              f"shade_ms {r['shade_ms']}, brute_hit_ms {r['brute_hit_ms']}; "
-              f"alive per bounce "
+              f"shade_ms {r['shade_ms']}, brute_hit_ms {r['brute_hit_ms']}, "
+              f"nee_ms {r['nee_ms']}, shadow_ms {r['shadow_ms']}, "
+              f"nee_lane_share {r['nee_lane_share']}; alive per bounce "
               f"{r['alive_per_bounce']}", flush=True)
-        for key in ("device_ms", "self_ms", "idle_ms", "counters"):
+        parts = [(key, r[key]) for key in ("device_ms", "self_ms", "idle_ms",
+                                           "counters")]
+        for q, split in (r["by_query"] or {}).items():
+            parts += [(f"{q} {key}", v) for key, v in split.items()]
+        for key, values in parts:
             print(f"  {key}: " + ", ".join(
                 f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
-                for k, v in sorted(r[key].items(), key=lambda kv: -kv[1])),
+                for k, v in sorted(values.items(), key=lambda kv: -kv[1])),
                 flush=True)
     if a.out:
         Path(a.out).parent.mkdir(parents=True, exist_ok=True)

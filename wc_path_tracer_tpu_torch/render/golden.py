@@ -631,7 +631,8 @@ def sample_direct_light(scene: Scene, rec: HitRecord, seed, mask,
     (``_soft_sphere_shadow``) and the shadow query sees the triangles only.
     """
     sph, mesh, mats = scene.spheres, scene.mesh, scene.materials
-    weights, _, _, tri, a, b, c = _light_tables(scene)
+    with profiling.stage("nee.tables"):
+        weights, _, _, tri, a, b, c = _light_tables(scene)
     cum = torch.cumsum(weights, dim=0)
     total_w = cum[-1]
     has_lights = total_w > 0.0
@@ -703,21 +704,24 @@ def sample_direct_light(scene: Scene, rec: HitRecord, seed, mask,
         v_soft = _soft_sphere_shadow(scene, shadow_o, wi, dist, extent,
                                      enabled)
     occ_fn = getattr(intersect_fn, "occlusion_fn", None)
-    if occ_fn is not None:
-        # disabled lanes (non-NEE lobes, dead rays, lightless scenes) get a
-        # -inf bound: ``ok`` masks them, and the cluster sweep culls them
-        visible = ~occ_fn(scene_hard, shadow_o, wi,
-                          torch.where(enabled, thresh, -KINF), cfg)
-    else:
-        # the full closest hit; a backend that skips dead lanes gets
-        # ``enabled`` as its alive mask (``ok`` masks every other lane)
-        with torch.no_grad():
-            if getattr(intersect_fn, "accepts_alive", False):
-                shadow = intersect_fn(scene_hard, shadow_o, wi, cfg,
-                                      alive=enabled)
-            else:
-                shadow = intersect_fn(scene_hard, shadow_o, wi, cfg)
-        visible = (~shadow.hit) | (shadow.t >= thresh)
+    profiling.count("shadow.lanes", shadow_o.shape[0])
+    with profiling.stage("shadow"):
+        if occ_fn is not None:
+            # disabled lanes (non-NEE lobes, dead rays, lightless scenes)
+            # get a -inf bound: ``ok`` masks them, and the cluster sweep
+            # culls them
+            visible = ~occ_fn(scene_hard, shadow_o, wi,
+                              torch.where(enabled, thresh, -KINF), cfg)
+        else:
+            # the full closest hit; a backend that skips dead lanes gets
+            # ``enabled`` as its alive mask (``ok`` masks every other lane)
+            with torch.no_grad():
+                if getattr(intersect_fn, "accepts_alive", False):
+                    shadow = intersect_fn(scene_hard, shadow_o, wi, cfg,
+                                          alive=enabled)
+                else:
+                    shadow = intersect_fn(scene_hard, shadow_o, wi, cfg)
+            visible = (~shadow.hit) | (shadow.t >= thresh)
 
     # pdf_area = (w_pick / total) / area_pick = lum_pick / total
     pdf_a = _at_least(lum_pick / _at_least(total_w, 1e-20), 1e-20)
@@ -851,7 +855,9 @@ def _bounce(scene: Scene, cfg: RenderConfig, intersect_fn,
             # the light pdf of having sampled this point instead, in solid
             # angle at the previous vertex.  The weight stays attached; the
             # double where keeps 0/0 out of reverse mode where pdf_prev = 0
-            total_w = _at_least(torch.sum(_light_tables(scene)[0]), 1e-20)
+            with profiling.stage("nee.tables"):
+                weights = _light_tables(scene)[0]
+            total_w = _at_least(torch.sum(weights), 1e-20)
             lum_hit = _luminance(m["emission"]) * m["emission_strength"]
             cos_hit = _at_least(-ix.dot3(rec.normal, d), 1e-6)
             pdf_l_sa = (lum_hit / total_w) * rec.t * rec.t / cos_hit
@@ -869,24 +875,27 @@ def _bounce(scene: Scene, cfg: RenderConfig, intersect_fn,
     # full weight
     if cfg.use_nee:
         nee_mask = live & ((is_lambert | is_ggx) if cfg.mis else is_lambert)
-        direct, wi_l, pdf_l, seed = sample_direct_light(
-            scene, rec, seed, nee_mask, intersect_fn, cfg)
-        f = bsdf.lambert_brdf_over_pi(m["albedo"])
-        if cfg.mis:
-            f_ggx = bsdf.ggx_eval(rec.normal, -d, wi_l, m["albedo"],
-                                  m["roughness"], m["metallic"])
-            f = torch.where(is_ggx[:, None], f_ggx, f)
-            pdf_b_l = torch.where(
-                is_ggx, bsdf.ggx_pdf(rec.normal, -d, wi_l, m["roughness"]),
-                bsdf.lambert_pdf(rec.normal, wi_l))
-            # the same guard: a masked GGX lane's pdf_b_l may be garbage
-            ok_l = pdf_l > 1e-12
-            den_l = torch.where(ok_l, pdf_l + pdf_b_l, 1.0)
-            w_l = torch.where(ok_l, pdf_l / den_l, 0.0)
-            direct = direct * f * trans * w_l[:, None]
-        else:
-            direct = direct * f * trans
-        total = total + torch.where(nee_mask[:, None], direct, 0.0)
+        profiling.count("nee.lanes", nee_mask)
+        with profiling.stage("nee"):
+            direct, wi_l, pdf_l, seed = sample_direct_light(
+                scene, rec, seed, nee_mask, intersect_fn, cfg)
+            f = bsdf.lambert_brdf_over_pi(m["albedo"])
+            if cfg.mis:
+                f_ggx = bsdf.ggx_eval(rec.normal, -d, wi_l, m["albedo"],
+                                      m["roughness"], m["metallic"])
+                f = torch.where(is_ggx[:, None], f_ggx, f)
+                pdf_b_l = torch.where(
+                    is_ggx,
+                    bsdf.ggx_pdf(rec.normal, -d, wi_l, m["roughness"]),
+                    bsdf.lambert_pdf(rec.normal, wi_l))
+                # the same guard: a masked GGX lane's pdf_b_l may be garbage
+                ok_l = pdf_l > 1e-12
+                den_l = torch.where(ok_l, pdf_l + pdf_b_l, 1.0)
+                w_l = torch.where(ok_l, pdf_l / den_l, 0.0)
+                direct = direct * f * trans * w_l[:, None]
+            else:
+                direct = direct * f * trans
+            total = total + torch.where(nee_mask[:, None], direct, 0.0)
 
     # dielectric pre-draw (:268-273): the short-circuit `||` skips the draw
     # under total internal reflection

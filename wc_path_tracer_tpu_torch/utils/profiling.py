@@ -23,19 +23,25 @@ import contextvars
 
 import torch
 
-# (span, its parent in a served frame, None at the top).  The transport's
-# NEE shadow query and the silhouette query open the sweep's spans too,
-# under ``bounce`` and outside any span respectively.
+# (span, its parent in a served frame, None at the top; a tuple where the
+# span opens under either).  The sweep's sort, cull and kernel serve the
+# closest-hit query (under ``intersect``) and NEE's shadow query (under
+# ``shadow``); the silhouette query opens them outside any span.
+_QUERIES = ("intersect", "shadow")
 SPANS = (
     ("render_step", None),       # Renderer.step: one frame, accumulated
     ("post", None),              # Renderer.output: bloom .. uint8 on host
     ("sweep.tables", "render_step"),  # the sweep's tables, once a frame
     ("bounce", "render_step"),   # golden._bounce_segment: one segment
     ("intersect", "bounce"),     # its closest-hit query, any backend
-    ("sweep.sort", "intersect"),     # the ray regrouping and its inverse
-    ("sweep.cull", "intersect"),     # padding, cull, cluster order, packing
-    ("sweep.kernel", "intersect"),   # the block sweep: B1, B2 or a twin
+    ("sweep.sort", _QUERIES),    # the ray regrouping and its inverse
+    ("sweep.cull", _QUERIES),    # padding, cull, cluster order, packing
+    ("sweep.kernel", _QUERIES),  # the block sweep: B1, B2 or a twin
     ("sweep.reshade", "intersect"),  # the winner's vertices, resolve_hit
+    ("nee", "bounce"),           # golden._bounce's light sample, MIS weight
+    ("nee.tables", ("nee", "bounce")),  # golden._light_tables: the pick's
+    #                              table, and the MIS emission weight's
+    ("shadow", "nee"),           # NEE's shadow query, any backend
     ("compact", "render_step"),  # golden.trace_rays_compact: a later
     #                              bounce's partition, and the final restore
 )
@@ -47,9 +53,12 @@ SPANS = (
 # shading kernel T1 (golden._bounce_fused): the lanes handed to it; at each
 # launch of the brute-force search H1 (golden.intersect_scene_brute): the
 # lanes handed to it; at each call of the post kernels P1
-# (kernels/post.py::post_frame_kernel): the pixels handed to them
+# (kernels/post.py::post_frame_kernel): the pixels handed to them; at each
+# NEE light sample of golden._bounce: the lanes that sample a light (summed
+# on the device), and the lanes handed to the shadow query
 COUNTERS = ("intersect.lanes", "intersect.alive", "compact.alive",
-            "compact.kept", "shade.lanes", "brute.lanes", "post.pixels")
+            "compact.kept", "shade.lanes", "brute.lanes", "post.pixels",
+            "nee.lanes", "shadow.lanes")
 
 _OFF = contextlib.nullcontext()
 _totals = contextvars.ContextVar("profiling_totals", default=None)
