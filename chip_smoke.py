@@ -56,6 +56,13 @@ seeded HDR image: the uint8 image bit for bit, its launches, its device
 time (CUDA events) against its bytes bound and the plain chain's, and the
 host time of one call.
 
+Its [cull] phase holds C1 (kernels/csrc/cluster_cull.cu), the cluster
+sweep's cull and per-block order, against ``cluster.cull_order_plain`` on
+the 5 closest-hit queries of a 512 x 512 bunny frame and the 5 shadow
+queries of a lit 512 x 512 bunny NEE+MIS frame: its five outputs, and B1
+on both sets of inputs bit for bit, both timed, C1 against its
+operations and bytes bound.
+
 Its [train] phase drives the training path: the bench's fwd+bwd step
 (``parallel.render.scene_loss_grad`` with the bench loss, mean(img^2) over
 albedo, emission, emission_strength and roughness) on the 1024 x 1024
@@ -201,6 +208,11 @@ T1_FIELDS = ("o", "d", "total", "trans", "seed", "alive")
 # the slot tables once
 OPS_PER_SPHERE = 25
 H1_FIELDS = ("t_s", "s_idx", "t_tri", "t_idx")
+# C1's operations bound: each padded ray tests every cluster's box, the slab
+# test of OPS_PER_SLAB and the 3 enter compares; its bytes: the rays in (an
+# expanded origin once), the boxes once, the five outputs out
+OPS_PER_CULL = OPS_PER_SLAB + 3
+C1_FIELDS = ("nact", "clist", "bt0", "rays", "prev")
 # [post]: the serving cells' post settings (perfbench's serve_edit_orbit)
 POST = dict(tonemap="aces", gamma=2.2, bloom=True, threshold=1.0, knee=0.1,
             strength=1.0)
@@ -230,6 +242,12 @@ SCENE_SUBDIV = 7             # [scene]: bumpy_sphere(7), bunny_like_scene(7)
 SCENE_TRIS = 20 * 4 ** SCENE_SUBDIV     # 327,680 triangles
 SCENE_FRAMES = 2             # frames of each [scene] CLI render
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def sweep_counts(**counts):
+    """``zeros(**counts)`` with C1 beside B1 and B2: every cluster sweep on
+    the card culls in one launch of C1 before its block sweep."""
+    return zeros(**counts, C1=counts.get("B1", 0) + counts.get("B2", 0))
 
 
 def check(ok, what):
@@ -719,6 +737,122 @@ def brute_phase(smi, cscene, cmats, ccfg):
                 "sweep",
         per_query=box, bsdf=mean_entry(bsdf), bsdf_per_query=bsdf,
         card=smi)
+
+
+def sweep_inputs(scene, mats, cfg):
+    """Every ``cluster.cluster_sweep`` call of one frame through the sweep
+    and its kernels -> [(origin, direction, t_init, cmin, cmax, ray_block,
+    tris)] in call order."""
+    real, seen = cluster.cluster_sweep, []
+
+    def capture(origin, direction, t_init, tris, cmin, cmax,
+                ray_block=cluster.RAY_BLOCK, **kw):
+        # an origin expanded from one row stays a view (read in place)
+        seen.append(tuple(x if x.stride(0) == 0 else x.clone()
+                          for x in (origin, direction, t_init))
+                    + (cmin, cmax, ray_block, tris))
+        return real(origin, direction, t_init, tris, cmin, cmax,
+                    ray_block=ray_block, **kw)
+
+    cluster.cluster_sweep = capture
+    try:
+        with torch.no_grad():
+            golden.render_frame(scene, mats, cfg, 0, intersect_fn=sweep
+                                .make_intersect_fn(scene, cfg))
+    finally:
+        cluster.cluster_sweep = real
+    return seen
+
+
+def cull_differ(got, want):
+    """C1's five outputs against the twin's -> {field: how many differ}:
+    nact, clist and prev by their bits, bt0 and rays as floats (C1 gives
+    +0.0 where the twin may give an entry of -0.0)."""
+    out = {}
+    for name, g, w in zip(C1_FIELDS, got, want):
+        if name not in ("bt0", "rays"):
+            out[name] = bits_differ(g, w)
+        elif g.shape != w.shape or not torch.equal(g, w):
+            out[name] = f"{int((g != w).sum())} of {g.numel()} differ"
+    return {k: v for k, v in out.items() if v}
+
+
+def cull_cell(smi, label, queries):
+    """C1 against ``cluster.cull_order_plain`` on each captured query: its
+    five outputs (``cull_differ``, and the largest absolute difference of
+    any of their values, the integers' included), and B1 on both sets of
+    inputs bit for bit in payload and visits; both timed (CUDA events), C1
+    against its bound -> one record per query."""
+    per_query = []
+    for q, (o, d, t0, cmin, cmax, rb, tris) in enumerate(queries):
+
+        def kernel(o=o, d=d, t0=t0, cmin=cmin, cmax=cmax, rb=rb):
+            return cluster.cluster_cull_kernel(o, d, t0, cmin, cmax, rb)
+
+        def plain(o=o, d=d, t0=t0, cmin=cmin, cmax=cmax, rb=rb):
+            return cluster.cull_order_plain(o, d, t0, cmin, cmax, rb)
+
+        got, want = kernel(), plain()
+        vk = torch.zeros_like(got[0])
+        vp = torch.zeros_like(vk)
+        pk = cluster.cluster_sweep_kernel(*got, tris, vk)
+        pp = cluster.cluster_sweep_kernel(*want, tris, vp)
+        torch.cuda.synchronize()
+        differ = cull_differ(got, want)
+        err = max(float((g.double() - w.double()).abs().max())
+                  for g, w in zip(got, want))
+        same = bits_differ(pk, pp) is None and torch.equal(vk, vp)
+        ms = event_ms(kernel, 20)
+        plain_ms = event_ms(plain, 3)
+        R, C = d.shape[0], cmin.shape[0]
+        ops = got[3].shape[0] * rb * C * OPS_PER_CULL
+        nb = nbytes(o[:1] if o.stride(0) == 0 else o, d, t0, cmin, cmax,
+                    *got)
+        least_s, bound_by = peaks.bound(ops, nb)
+        bound_ms = least_s * 1e3
+        per_query.append(dict(
+            query=q, rays=R, clusters=C, ray_block=rb,
+            nact=int(got[0].sum()), bitwise=not differ, max_abs_err=err,
+            sweep_bitwise=same,
+            ms=ms, plain_ms=plain_ms, ops=ops, bytes=nb, bound_ms=bound_ms,
+            bound_by=bound_by))
+        print(f"[cull] {label} query {q}: {R} rays, {C} clusters, ray block "
+              f"{rb}; C1 {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {ops / 1e9:.3f} GFLOP, "
+              f"{nb / 1e6:.2f} MB), {100 * bound_ms / ms:.1f} % of it; "
+              f"active {per_query[-1]['nact']}; differ {differ or 'none'}, "
+              f"max_abs_err {err!r}; "
+              f"B1 the same on both: {same}, on {smi}", flush=True)
+        check(not differ and same, f"[cull] {label} query {q}: C1 equals "
+              "cull_order_plain and B1 gives the same payload and visits "
+              "on both")
+    return per_query
+
+
+def cull_phase(smi, scene, mats, cfg):
+    """The [cull] phase: C1, the sweep's cull and per-block order, against
+    its plain twin on the 5 closest-hit queries of one 512^2 bunny frame
+    and the 5 shadow queries of one lit 512^2 bunny NEE+MIS frame -> C1's
+    entry of the kernels line."""
+    bunny = sweep_inputs(scene, mats, cfg)
+    lit = sweep_inputs(lit_bunny_scene(), mats, cfg.replace(**NEE))
+    check(len(bunny) == 5 and len(lit) == 10, "[cull] one bunny frame makes "
+          "5 sweep queries, one lit bunny NEE frame 5 closest-hit and 5 "
+          "shadow queries")
+    with torch.no_grad():
+        closest = cull_cell(smi, "bunny 512^2", bunny)
+        shadow = cull_cell(smi, "lit bunny 512^2 shadow", lit[1::2])
+    return dict(
+        name="cluster_cull", route="cuda",
+        source="wc_path_tracer_tpu_torch/kernels/csrc/cluster_cull.cu",
+        replaces=None,
+        max_abs_err=max(q["max_abs_err"] for q in closest + shadow),
+        **mean_entry(closest),
+        library_ms=None,
+        ms_note="mean per launch over one 512^2 bunny frame's 5 queries; "
+                "replaces no TPU kernel: XLA fused the JAX cull",
+        per_query=closest, shadow=mean_entry(shadow),
+        shadow_per_query=shadow, card=smi)
 
 
 def post_bytes(h, w):
@@ -1224,7 +1358,7 @@ def train_cell(smi, label, scene, mats, cfg, renderer, per_step):
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     finite, norm = grad_stats(grads)
-    want = zeros(**{k: 4 * n for k, n in per_step.items()})
+    want = sweep_counts(**{k: 4 * n for k, n in per_step.items()})
     check(counts == want, f"[train] {label}: 4 steps launched {counts} "
           f"(expected {want})")
     check(finite and norm > 0.0, f"[train] {label}: every grad leaf is "
@@ -1531,7 +1665,7 @@ def vertex_steps(smi, lit, cam):
             trainable=("albedo", "vertices"), learning_rate=1e-3, steps=3,
             vary_seed=True, log_every=1), renderer="auto")
     counts = read_counts()
-    check(counts == zeros(B1=30),
+    check(counts == sweep_counts(B1=30),
           f"[inverse] 3 lit-bunny steps launched {counts} (B1: 10 per step)")
     moved = float((out.mesh.vertices - lit.mesh.vertices).abs().max())
     check(moved > 0.0 and all(math.isfinite(h["grad_norm"]) for h in hist),
@@ -1679,7 +1813,7 @@ def edge_cell(smi, label, scene, cam, cfg, per_step):
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     finite, norm = grad_stats(grads)
-    want = zeros(**{k: 4 * n for k, n in per_step.items()})
+    want = sweep_counts(**{k: 4 * n for k, n in per_step.items()})
     check(counts == want, f"[edge] {label}: 4 steps launched {counts} "
           f"(expected {want})")
     check(finite and norm > 0.0, f"[edge] {label}: the grads of "
@@ -1754,7 +1888,7 @@ def edge_vertex_steps(smi, lit, cam):
             trainable=("vertices",), learning_rate=1e-3, steps=3,
             vary_seed=False, log_every=1), renderer="auto")
     counts = read_counts()
-    check(counts == zeros(B1=3 * EDGE_LIT_B1),
+    check(counts == sweep_counts(B1=3 * EDGE_LIT_B1),
           f"[edge] 3 lit-bunny vertex steps launched {counts} (B1: "
           f"{EDGE_LIT_B1} per step)")
     losses = [h["loss"] for h in hist]
@@ -1883,7 +2017,7 @@ def compact_phase(smi, scene, mats):
           "[compact] the brute-force compacted full_bsdf frame equals the "
           "plain frame bit for bit")
     b1 = out["bunny 512^2 rr from bounce 1 (B1)"]
-    check(all(b1[k]["launches"] == zeros(B1=15, T1=15)
+    check(all(b1[k]["launches"] == sweep_counts(B1=15, T1=15)
               for k in ("off", "on")),
           "[compact] 3 RR bunny frames launched B1 and T1 15 times each with "
           "compaction off and on")
@@ -1913,7 +2047,7 @@ def serve_phase(smi, scene, cam, cscene, ccam):
         _, s = sync_time(lambda: r.step(1))
         times.append(s * 1e3)
     counts = read_counts()
-    check(counts == zeros(B1=5 * SERVE_FRAMES, T1=5 * SERVE_FRAMES),
+    check(counts == sweep_counts(B1=5 * SERVE_FRAMES, T1=5 * SERVE_FRAMES),
           f"[serve] {SERVE_FRAMES} Renderer steps launched {counts} (B1 5 "
           "per frame)")
     check(r.frame_count == SERVE_FRAMES and torch.equal(r.image, want),
@@ -2041,7 +2175,7 @@ def cli_phase(smi, kind):
     Cornell box; ``info`` -> its JSON record."""
     bunny = ["--gltf", BUNNY_GLB, "--width", "512", "--height", "512",
              "--bloom"]
-    b1 = named(zeros(B1=5, T1=5))
+    b1 = named(sweep_counts(B1=5, T1=5))
     b3 = named(zeros(B3=5, T1=5))
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2275,14 +2409,13 @@ def scene_cli(smi, obj, tmp):
     p = functools.partial(os.path.join, tmp)
     args = ["render", "--obj", obj, "--width", "512", "--height", "512",
             "--bounces", "4", "--frames", str(SCENE_FRAMES)]
-    zero = named(zeros(T1=5))
     out = {}
-    for path, kernel in (("auto", "cluster_sweep"), ("pallas", "bvh_walk")):
+    for path, tag in (("auto", "B1"), ("pallas", "B3")):
         _, err, s = run_cli([*args, "--renderer", path, "--metrics",
                              p(f"{path}.jsonl"), "--checkpoint",
                              p(f"ck_{path}"), "--out", p(f"{path}.png")])
         recs = frame_records(p(f"{path}.jsonl"), SCENE_FRAMES,
-                             dict(zero, **{kernel: 5}),
+                             named(sweep_counts(T1=5, **{tag: 5})),
                              f"{SCENE_TRIS}-triangle OBJ '{path}' render")
         line = next((ln for ln in err.splitlines()
                      if ln.startswith("scene: ")), "")
@@ -2299,7 +2432,8 @@ def scene_cli(smi, obj, tmp):
         ms = [r["seconds"] * 1e3 for r in recs]
         out[path] = dict(frame_ms=ms, process_s=s, scene_line=line,
                          launches={k: sum(r["kernel_launches"][k]
-                                          for r in recs) for k in zero},
+                                          for r in recs)
+                                   for k in named(zeros())},
                          alive_fraction=recs[0]["alive_fraction"])
         print(f"[scene] CLI render --obj, {SCENE_TRIS} triangles, 512^2, "
               f"'{path}': ms per frame {[round(x, 2) for x in ms]} (host "
@@ -2324,7 +2458,7 @@ def scene_frame(smi, scene, mats, cfg, path, tag):
             scene, mats, cfg, 0, None, frame_fn=frame_fn))
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check(counts == zeros(T1=5, **{tag: 5}),
+    check(counts == sweep_counts(T1=5, **{tag: 5}),
           f"[scene] one in-process '{path}' frame launched {counts}")
     check_image(image, f"[scene] in-process '{path}'")
     print(f"[scene] in-process '{path}' frame 0 (the first on this scene): "
@@ -2336,7 +2470,7 @@ def scene_frame(smi, scene, mats, cfg, path, tag):
 def scene_sweep(smi, scene, mats, cfg):
     """(d) B1 on the large scene's primary query: bit for bit with its twin
     (``sweep_both``), ms per launch against its bound, the whole query
-    (cull, sort, kernel), the cull's chunking and the per-frame table
+    (cull, sort, kernel), its cull alone (C1) and the per-frame table
     rebuild -> record."""
     queries = []
 
@@ -2354,7 +2488,6 @@ def scene_sweep(smi, scene, mats, cfg):
     tables = cluster.build_cluster_tables(scene.mesh)
     C = tables[0].shape[0] // cluster.CLUSTER_ROWS
     live = int(torch.all(tables[1] <= tables[2], dim=1).sum())
-    G = cluster.cull_chunk_blocks(RB, C, B)
     o, d, t0 = primary_rays(args)
     k, p, vk, vp, nact = sweep_both((o, d, t0) + tables, cluster.RAY_BLOCK)
     rec = sweep_parity(f"{SCENE_TRIS}-triangle primary", k, p, vk, vp, nact)
@@ -2366,6 +2499,8 @@ def scene_sweep(smi, scene, mats, cfg):
     ms = event_ms(lambda: cluster.cluster_sweep_kernel(*args), 20)
     plain = event_ms(lambda: cluster.cluster_sweep_plain(*args), 1)
     query_ms = event_ms(lambda: cluster.cluster_sweep(o, d, t0, *tables), 5)
+    cull_ms = event_ms(lambda: cluster.cluster_cull_kernel(
+        o, d, t0, tables[1], tables[2]), 5)
     ops = int(visits.sum()) * B * cluster.CLUSTER_TRIS * OPS_PER_TEST
     bound_s, bound_by = peaks.bound(ops, nbytes(*args) + nbytes(args[4]))
     bound_ms = bound_s * 1e3
@@ -2377,16 +2512,15 @@ def scene_sweep(smi, scene, mats, cfg):
                query_ms=query_ms, tables_ms=s / 3 * 1e3, clusters=C,
                live_clusters=live, visits=int(visits.sum()),
                nact_per_block=spread(args[0]), visits_per_block=spread(visits),
-               cull_elements=RB * B * C, cull_chunks=RB // G,
-               cull_chunk_rays=G * B)
+               cull_ms=cull_ms)
     print(f"[scene] B1 primary query, {C} clusters ({live} live): "
           f"{ms:.4f} ms per launch (plain {plain:.1f} ms), bound "
           f"{bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.1f}x; "
           f"{out['visits']} block-cluster visits (nact per block mean "
           f"{out['nact_per_block']['mean']:.1f}, max "
           f"{out['nact_per_block']['max']}); whole query (cull, sort, "
-          f"kernel) {query_ms:.3f} ms; cull of {RB * B} rays x {C} clusters "
-          f"in {RB // G} chunks of {G * B} rays; the sweep's tables "
+          f"kernel) {query_ms:.3f} ms, of which the cull of {RB * B} rays x "
+          f"{C} clusters (C1) {cull_ms:.3f} ms; the sweep's tables "
           f"(rebuilt per frame) {out['tables_ms']:.2f} ms, on {smi}",
           flush=True)
     return out
@@ -2647,6 +2781,7 @@ def bench_run(smi, label, args):
     check(set(launches) == set(want) and all(
         launches[row]["per_step"] == dict(zero, **(
             {k: 5} if k else {}), **(
+            {"cluster_cull": 5} if k == "cluster_sweep" else {}), **(
             {"shade_segment": fused} if row == "headline" else {}),
             brute_hit=searched[row])
         for row, k in want.items()),
@@ -3011,6 +3146,9 @@ def main() -> int:
     # -- 5d. P1, the serving post-processing, against its twin ------------
     p1 = post_phase(smi)
 
+    # -- 5e. C1, the sweep's cull and per-block order, against its twin ---
+    c1 = cull_phase(smi, scene, mats, cfg)
+
     # -- 6. the "pallas" path: the split bunny through the BVH walk ---------
     b3, split_scene = pallas_phase(
         smi, cfg, scene, [line.strip() for line in logs.get(
@@ -3159,7 +3297,8 @@ def main() -> int:
         "bench_launches": bench_launches(bench_rec, "cluster_sweep"),
         "bench": {k: v for k, v in bench_rec.items() if k != "B3"},
     }, b2, b3, t1, h1,
-        dict(p1, serve_launches=serving["post_launches"]["P1"])]}))
+        dict(p1, serve_launches=serving["post_launches"]["P1"]),
+        dict(c1, serve_launches=serving["launches"]["C1"])]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

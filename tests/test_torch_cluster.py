@@ -15,10 +15,15 @@ import jax.numpy as jnp
 from wc_path_tracer_tpu.kernels import cluster as jcluster
 from wc_path_tracer_tpu.models.procedural import bunny_like_scene as j_bunny
 
+from wc_path_tracer_tpu_torch import RenderConfig
 from wc_path_tracer_tpu_torch.kernels import cluster, launches
 from wc_path_tracer_tpu_torch.models.procedural import (bunny_like_scene,
                                                          signed_zero_query,
                                                          tie_heavy_query)
+from wc_path_tracer_tpu_torch.ops import intersect as ix
+from wc_path_tracer_tpu_torch.render.renderer import Renderer
+from wc_path_tracer_tpu_torch.utils import profiling
+from cull_cases import CULL_CASES, cull_case
 
 torch.set_num_threads(2)
 
@@ -230,3 +235,99 @@ def test_kernel_wrapper_runs_the_twin_on_cpu(case):
                                  block_fn=cluster.cluster_sweep_plain)
     assert torch.equal(got, want)
     assert launches.read_counts()["B1"] == before
+
+
+@pytest.mark.parametrize("name", list(CULL_CASES))
+def test_cull_order_plain_orders_each_block(name):
+    """``cull_order_plain``, the twin C1 must equal, on axis-aligned rays
+    with signed zeros, origins on box faces, all-dead clusters, disabled
+    lanes, a ragged last block, 1 and 161 clusters, and exact entry ties:
+    nact counts each block's entered clusters, each block's list is a
+    permutation of the clusters in C1's order (by entry, -0.0 equal to
+    +0.0, then by cluster id: the stable argsort), and ``rays`` and
+    ``prev`` pack the rays padded with ray 0."""
+    q = cull_case(name)
+    nact, clist, bt0, rays, prev = cluster.cull_order_plain(*q[:6])
+    o, d, t0, cmin, cmax, rb, _ = q
+    RB, C = bt0.shape
+    R = o.shape[0]
+    assert RB == -(-R // rb) and rays.shape == prev.shape == (RB, rb, 16)
+    assert nact.dtype == clist.dtype == torch.int32
+    assert torch.equal(nact, (bt0 < KINF).sum(1, dtype=torch.int32))
+    pad = torch.cat([torch.arange(R), torch.zeros(RB * rb - R,
+                                                  dtype=torch.long)])
+    rows = rays.view(-1, 16)
+    assert torch.equal(rows[:, 0:3], o[pad]) and torch.equal(rows[:, 3:6],
+                                                              d[pad])
+    assert torch.equal(rows[:, 6], t0[pad])
+    assert not bool(rows[:, 8:].any())
+    want_prev = torch.zeros_like(rows)
+    want_prev[:, 0], want_prev[:, 11] = t0[pad], -1.0
+    assert torch.equal(prev.view(-1, 16), want_prev)
+    # a ray enters a live box it meets ahead of it and before its bound;
+    # the block's entry is its rays' least, t_lim a ray's farthest exit
+    t0s, t1s = ix.ray_box_sweep(o[pad], 1.0 / d[pad], cmin, cmax)
+    live = torch.all(cmin <= cmax, dim=1)
+    enter = (t0s <= t1s) & (t1s >= 0) & (t0s < t0[pad][:, None]) & live
+    block_t0 = torch.where(enter, t0s, KINF).view(RB, rb, C).amin(1)
+    assert torch.equal(torch.gather(block_t0, 1, clist.long()), bt0)
+    assert torch.equal(rows[:, 7], torch.where(enter, t1s, -KINF).amax(1))
+    key = bt0 + 0.0                      # -0.0 + 0.0 is +0.0
+    ids = clist.long()
+    assert torch.equal(ids.sort(dim=1).values,
+                       torch.arange(C).expand(RB, C))
+    assert bool(torch.all((key[:, :-1] < key[:, 1:])
+                          | ((key[:, :-1] == key[:, 1:])
+                             & (ids[:, :-1] < ids[:, 1:]))))
+    # each case holds what it is named for
+    if name == "grid":
+        assert bool(torch.isnan(t0s).any()) and bool((d == 0).any())
+        assert bool(torch.signbit(d[d == 0]).any())
+        assert int((key[:, 1:] == key[:, :-1]).sum()) > 0
+    if name == "dead-clusters":
+        active = torch.arange(C) < nact[:, None]
+        dead = torch.isin(clist, torch.tensor([0, 5, 6, 23],
+                                              dtype=torch.int32))
+        assert not bool((active & dead).any()) and int(nact.max()) > 0
+    if name == "disabled-lanes":
+        assert bool((t0 == -KINF).any())
+    if name == "signed-zero-entries":
+        zero = bt0 == 0.0
+        assert bool((zero & torch.signbit(bt0)).any(1).all())
+        assert bool((zero & ~torch.signbit(bt0)).any(1).all())
+        assert torch.equal(clist[:, :C], torch.arange(
+            C, dtype=torch.int32).expand(RB, C))
+
+
+def test_sweep_culls_through_the_kernel_where_it_runs(monkeypatch):
+    """Where the rays lie on the card, each sweep query of a ``Renderer``
+    frame culls in one call of C1's entry, over the lanes the query is
+    handed (``cull.lanes`` equals ``intersect.lanes``); the image is the
+    plain path's, bit for bit.  On the CPU ``cull.lanes`` stays 0."""
+    scene, cam = bunny_like_scene(2, device="cpu")
+    cfg = RenderConfig(width=16, height=16, max_bounces=2)
+    plain = Renderer(scene, cam, cfg, device="cpu")
+    plain.step(1)
+    with profiling.counting() as plain_counts:
+        plain.step(1)
+    assert "cull.lanes" in profiling.COUNTERS
+    assert plain_counts.get("cull.lanes", 0) == 0
+    calls = []
+
+    def stub(origin, direction, t_init, cmin, cmax, ray_block):
+        calls.append(direction.shape[0])
+        return cluster.cull_order_plain(origin, direction, t_init, cmin,
+                                        cmax, ray_block)
+
+    monkeypatch.setattr(cluster, "cluster_cull_kernel", stub)
+    monkeypatch.setattr(cluster, "on_card", lambda t: True)
+    r = Renderer(scene, cam, cfg, device="cpu")
+    r.step(1)
+    assert len(calls) == cfg.max_bounces + 1
+    with profiling.counting() as counts:
+        r.step(1)
+    assert torch.equal(r.image, plain.image)
+    assert len(calls) == 2 * (cfg.max_bounces + 1)
+    assert counts.pop("cull.lanes") == counts["intersect.lanes"] \
+        == sum(calls[cfg.max_bounces + 1:])
+    assert counts == plain_counts

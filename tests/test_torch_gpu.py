@@ -38,6 +38,7 @@ from wc_path_tracer_tpu_torch.scene.types import (MATERIAL_DIELECTRIC,
 from wc_path_tracer_tpu_torch.utils import profiling
 from test_torch_brute import CASES as BRUTE_CASES
 from test_torch_brute import _case as brute_case
+from cull_cases import CULL_CASES, cull_case
 
 
 def _need_card():
@@ -815,7 +816,8 @@ def test_cli_render_on_card(tmp_path):
 def test_bench_on_card():
     """``python -m wc_path_tracer_tpu_torch.bench`` on the card by default:
     the bunny at 64^2 through "auto" exits 0 and prints bench.py's JSON
-    line, with the cluster sweep launched 5 times per step."""
+    line, with the cluster sweep and its cull launched 5 times per
+    step."""
     _need_card()
     import json
     import math
@@ -834,7 +836,8 @@ def test_bench_on_card():
     lines = [json.loads(line[len("bench: launches "):])
              for line in proc.stderr.splitlines()
              if line.startswith("bench: launches ")]
-    assert lines[0]["per_step"] == launches.named(launches.zeros(B1=5))
+    assert lines[0]["per_step"] == launches.named(launches.zeros(B1=5,
+                                                                 C1=5))
 
 
 def _bits_differ(got, want):
@@ -1165,3 +1168,122 @@ def test_brute_kernel_wrapper_rejects_bad_inputs():
     torch.cuda.synchronize()
     for x, y, z in zip(a, b, c):
         assert _bits_differ(y, x) is None and _bits_differ(z, x) is None
+
+
+@functools.lru_cache(maxsize=None)
+def _cull_queries(case):
+    """[(origin, direction, t_init, cmin, cmax, ray_block, tris)] of each
+    cull case: every query of one 512^2 bunny frame, the same less its last
+    ray (a ragged last block at every ray block), the 5 shadow queries of
+    one lit 512^2 bunny NEE+MIS frame (``chip_smoke.py``'s scenes and
+    capture), the seeded tie-heavy and signed-zero queries, and the CPU
+    tests' CULL_CASES on the card."""
+    import chip_smoke
+    if case in CULL_CASES:
+        return [cull_case(case, "cuda")]
+    if case == "bunny-ragged":
+        return [(o[:-1], d[:-1], t0[:-1], cmin, cmax, rb, tris)
+                for o, d, t0, cmin, cmax, rb, tris in _cull_queries("bunny")]
+    if case in ("bunny", "lit-bunny-shadow"):
+        scene, cam = bunny_gltf_scene(device="cuda")
+        mats = camera_matrices(cam, 1.0)
+        cfg = RenderConfig(**chip_smoke.BUNNY)
+        if case == "bunny":
+            return chip_smoke.sweep_inputs(scene, mats, cfg)
+        return chip_smoke.sweep_inputs(chip_smoke.lit_bunny_scene(), mats,
+                                       cfg.replace(**chip_smoke.NEE))[1::2]
+    if case == "tie-heavy":
+        o, d, t0, tris, cmin, cmax = tie_heavy_query(65536, 32, seed=7,
+                                                     device="cuda")
+    else:
+        o, d, t0, tris, cmin, cmax = signed_zero_query(
+            65536, 32, seed=11, device="cuda", variant="mt")
+    return [(o, d, t0, cmin, cmax, cluster.RAY_BLOCK, tris)]
+
+
+def _float_bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ray_block", [None, 2048, 65536],
+                         ids=["query", "rb2048", "rb65536"])
+@pytest.mark.parametrize("case", ["bunny", "bunny-ragged", "lit-bunny-shadow",
+                                  "tie-heavy", "signed-zero"]
+                         + [f"cpu-{k}" for k in CULL_CASES])
+def test_cull_kernel_equals_plain_cull(case, ray_block):
+    """C1 against ``cull_order_plain`` on every query of the case, at the
+    query's ray block and re-culled at 2048 and 65,536: nact, clist
+    and prev bit for bit, the sorted entries and rays as floats (C1 gives
+    +0.0 for -0.0); B1 on both sets of inputs bit for bit in payload and
+    visits; ``cluster_sweep`` launches C1 once and counts the query's
+    lanes as ``cull.lanes``."""
+    _need_card()
+    for o, d, t0, cmin, cmax, rb, tris in _cull_queries(
+            case.removeprefix("cpu-")):
+        rb = ray_block or rb
+        got = cluster.cluster_cull_kernel(o, d, t0, cmin, cmax, rb)
+        want = cluster.cull_order_plain(o, d, t0, cmin, cmax, rb)
+        for name, g, w in zip(("nact", "clist", "bt0", "rays", "prev"), got,
+                              want):
+            same = (torch.equal(g, w) if name in ("bt0", "rays")
+                    else torch.equal(_float_bits(g), _float_bits(w)))
+            assert g.shape == w.shape and same, name
+        vk = torch.zeros_like(got[0])
+        vp = torch.zeros_like(vk)
+        pk = cluster.cluster_sweep_kernel(*got, tris, vk)
+        pp = cluster.cluster_sweep_kernel(*want, tris, vp)
+        assert torch.equal(_float_bits(pk), _float_bits(pp))
+        assert torch.equal(vk, vp)
+        before = launches.read_counts()["C1"]
+        with profiling.counting() as counts:
+            pay = cluster.cluster_sweep(o, d, t0, tris, cmin, cmax,
+                                        ray_block=rb)
+        assert launches.read_counts()["C1"] == before + 1
+        assert counts["cull.lanes"] == d.shape[0]
+        assert torch.equal(_float_bits(pay),
+                           _float_bits(pp.view(-1, 16)[:d.shape[0]]))
+
+
+@pytest.mark.gpu
+def test_cull_kernel_takes_tables_past_shared_memory():
+    """At CULL_SHARED_CLUSTERS clusters (its sort keys in 64 KB of shared
+    memory) and past it (its keys in a scratch of blocks x clusters in
+    device memory), ``cluster_sweep`` culls in one launch of C1, counts
+    the query's lanes as ``cull.lanes`` and gives the plain path's payload;
+    C1's five outputs equal the twin's."""
+    _need_card()
+    for C in (cluster.CULL_SHARED_CLUSTERS, cluster.CULL_SHARED_CLUSTERS + 1,
+              10000):
+        o, d, t0, tris, cmin, cmax = tie_heavy_query(4095, C, seed=13,
+                                                     device="cuda")
+        before = launches.read_counts()["C1"]
+        with profiling.counting() as counts:
+            got = cluster.cluster_sweep(o, d, t0, tris, cmin, cmax)
+        assert launches.read_counts()["C1"] == before + 1
+        assert counts["cull.lanes"] == 4095
+        plain = cluster.cull_order_plain(o, d, t0, cmin, cmax)
+        kern = cluster.cluster_cull_kernel(o, d, t0, cmin, cmax)
+        for name, g, w in zip(("nact", "clist", "bt0", "rays", "prev"), kern,
+                              plain):
+            same = (torch.equal(g, w) if name in ("bt0", "rays")
+                    else torch.equal(_float_bits(g), _float_bits(w)))
+            assert g.shape == w.shape and same, (C, name)
+        want = cluster.cluster_sweep_kernel(*plain, tris)
+        assert torch.equal(_float_bits(got),
+                           _float_bits(want.view(-1, 16)[:4095]))
+
+
+@pytest.mark.gpu
+def test_cull_kernel_wrapper_rejects_bad_inputs():
+    """C1's wrapper refuses CPU tensors and inputs off its table, naming
+    the input."""
+    _need_card()
+    o, d, t0, _, cmin, cmax = tie_heavy_query(1024, 4, seed=1, device="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        cluster.cluster_cull_kernel(o.cpu(), d.cpu(), t0.cpu(), cmin.cpu(),
+                                    cmax.cpu())
+    with pytest.raises(ValueError, match="t_init"):
+        cluster.cluster_cull_kernel(o, d, t0.double(), cmin, cmax)
+    with pytest.raises(ValueError, match="cmax"):
+        cluster.cluster_cull_kernel(o, d, t0, cmin, cmax[:, :2])

@@ -27,10 +27,11 @@ METRICS = Path(__file__).resolve().parents[1] / "perfbench" / "metrics"
 GLOBALS = {"B1": ("sweep_kernel",), "B2": ("sweep_kernel",),
            "B3": ("bvh_walk_kernel",), "T1": ("shade_segment",),
            "H1": ("brute_hit",),
-           "P1": ("post_down", "post_up", "post_composite")}
+           "P1": ("post_down", "post_up", "post_composite"),
+           "C1": ("cluster_cull",)}
 READ_BY = {"B1": "hit_kernel_roofline", "B2": "hit_kernel_roofline",
            "B3": "hit_kernel_roofline", "T1": "shade_ms",
-           "H1": "brute_hit_ms", "P1": None}
+           "H1": "brute_hit_ms", "P1": None, "C1": "cull_ms"}
 
 
 def _metric_matches(name):
@@ -48,7 +49,7 @@ def test_kernel_is_registered_and_named_for_its_metric(tag):
     wrapper is ``<library>_kernel``, and its source (with the headers it
     includes) defines its ``__global__`` kernels (one, or P1's three
     stages), whose names only the device-trace metric meant for them
-    matches: a T1, H1 or P1 kernel holds none of the closest-hit
+    matches: a T1, H1, P1 or C1 kernel holds none of the closest-hit
     roofline's matches."""
     k = launches.KERNELS[tag]
     assert k.tag == tag and k.entry == f"wc_{k.library}"
@@ -59,8 +60,8 @@ def test_kernel_is_registered_and_named_for_its_metric(tag):
     src = build.source(k.library).read_text()
     src += "".join((build.CSRC / h).read_text()
                    for h in re.findall(r'#include "([^"]+)"', src))
-    kernels = re.findall(r"__global__ void (?:__launch_bounds__\(\w+\) )?"
-                         r"(\w+)\(", src)
+    kernels = re.findall(r"__global__ void (?:__launch_bounds__\([\w, ]+\)"
+                         r"\s+)?(\w+)\(", src)
     assert kernels == list(GLOBALS[tag])
     for metric in set(READ_BY.values()) - {None}:
         for kernel in kernels:

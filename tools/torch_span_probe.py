@@ -27,7 +27,9 @@ lanes), ``compact_ms`` (device and idle ms whose innermost span is
 ``compact``), ``padding_share`` (1 − ``compact.alive`` ÷ ``compact.kept``:
 the share of the compacted bounces' lanes that were dead padding) and
 ``shade_ms`` (device ms of the fused shading kernel T1, ``shade_segment``)
-and ``brute_hit_ms`` (of the brute-force search H1, ``brute_hit``),
+and ``brute_hit_ms`` (of the brute-force search H1, ``brute_hit``) and
+``cull_ms`` (of the sweep's cull kernel C1, ``cluster_cull``; the lanes
+handed to it are the counter ``cull.lanes``),
 beside the profiled frame's live lanes entering each bounce
 (``golden.alive_per_bounce``, every lane marched, outside the profile).
 Under NEE it adds ``nee_ms`` and ``shadow_ms`` (device ms inside the
@@ -220,6 +222,8 @@ def serve_cell(name: str, device, size) -> dict:
         if ops else None,
         brute_hit_ms=sum(d for n, _, d, _ in ops if "brute_hit" in n) / 1e6
         if ops else None,
+        cull_ms=sum(d for n, _, d, _ in ops if "cluster_cull" in n) / 1e6
+        if ops else None,
         nee_ms=total.get("nee"), shadow_ms=total.get("shadow"),
         nee_lane_share=100.0 * counts["nee.lanes"] / counts["shadow.lanes"]
         if counts.get("shadow.lanes") else None,
@@ -263,6 +267,7 @@ def main() -> int:
               f"live_lane_share {r['live_lane_share']}, compact_ms "
               f"{r['compact_ms']}, padding_share {r['padding_share']}, "
               f"shade_ms {r['shade_ms']}, brute_hit_ms {r['brute_hit_ms']}, "
+              f"cull_ms {r['cull_ms']}, "
               f"nee_ms {r['nee_ms']}, shadow_ms {r['shadow_ms']}, "
               f"nee_lane_share {r['nee_lane_share']}; alive per bounce "
               f"{r['alive_per_bounce']}", flush=True)

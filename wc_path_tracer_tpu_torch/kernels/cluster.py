@@ -14,11 +14,14 @@ tight), each with an AABB.  A query of R rays:
    exact tie, the lowest lane within a cluster), and stops a block once
    every ray's min(t_best, t_lim) is at or before the next cluster's entry.
 
-Step 4 is ``cluster_sweep_kernel``: on CUDA tensors it launches the Hopper
-kernel in csrc/cluster_sweep.cu; on CPU tensors it runs its plain PyTorch
-twin ``cluster_sweep_plain``, which repeats the kernel's arithmetic, visit
-order, tie rule and early exit exactly.  ``sweep_reference`` is an
-independent brute-force oracle (global first minimum).
+Steps 1-3 are ``cull_order_plain``; on CUDA tensors ``cluster_sweep``
+hands them to C1 (``cluster_cull_kernel``, csrc/cluster_cull.cu), which
+gives the same inputs of step 4 in one launch.  Step 4 is ``cluster_sweep_kernel``: on
+CUDA tensors it launches the Hopper kernel in csrc/cluster_sweep.cu; on CPU
+tensors it runs its plain PyTorch twin ``cluster_sweep_plain``, which
+repeats the kernel's arithmetic, visit order, tie rule and early exit
+exactly.  ``sweep_reference`` is an independent brute-force oracle (global
+first minimum).
 
 ``variant="mxu"`` swaps step 4 for the plane-form test
 (``cluster_sweep_mxu_kernel``, csrc/cluster_sweep_mxu.cu, and its twin
@@ -47,6 +50,7 @@ SWEEP_CTAS = 4       # CTAs sharing one 512-ray block in both sweep kernels
 SWEEP_GROUPS = 4     # threads per ray there, each testing 128 / 4 slots
 PAYLOAD_COLS = 16
 CULL_MATERIALIZE_ELEMS = 64 * 1024 * 1024   # largest (rays x clusters) cull
+CULL_SHARED_CLUSTERS = 8192   # most clusters C1 sorts in shared memory
 MXU_ROWS = 8         # K rows of a plane-form slab: o (3), d (3), 1, pad
 MXU_FIELDS = 6       # Q, P, Bu, Au, Bv, Av
 
@@ -255,7 +259,9 @@ def cluster_sweep(origin, direction, t_init, tris, cmin, cmax,
     ``mat_tbl`` of ``build_cluster_tables_mxu`` (its payload's vertex
     columns are zero).  ``block_fn`` sweeps the blocks; the default is the
     variant's kernel wrapper, which launches the CUDA kernel on CUDA
-    tensors.  A discrete search: the caller re-shades the winner.
+    tensors.  Steps 1-3 run in C1 on the card (its lanes counted as
+    ``cull.lanes``), else in ``cull_order_plain``.  A discrete search: the
+    caller re-shades the winner.
     """
     if variant == "mt":
         tbl = (tris,)
@@ -271,31 +277,103 @@ def cluster_sweep(origin, direction, t_init, tris, cmin, cmax,
     if block_fn is None:
         block_fn = default_fn
     R = origin.shape[0]
+    with profiling.stage("sweep.cull"):
+        if on_card(direction):
+            profiling.count("cull.lanes", R)
+            blocks = cluster_cull_kernel(origin, direction, t_init, cmin, cmax,
+                                         ray_block)
+        else:
+            blocks = cull_order_plain(origin, direction, t_init, cmin, cmax,
+                                      ray_block)
+    with profiling.stage("sweep.kernel"):
+        pay = block_fn(*blocks, *tbl)
+    return pay.view(-1, PAYLOAD_COLS)[:R]
+
+
+def cull_order_plain(origin, direction, t_init, cmin, cmax,
+                     ray_block: int = RAY_BLOCK):
+    """Steps 1-3 of the sweep in plain PyTorch -> the block sweep's inputs
+    (nact (RB,) int32, clist (RB, C) int32, bt0 (RB, C) sorted, rays (RB,
+    ray_block, 16), prev (RB, ray_block, 16)); the twin of C1
+    (``cluster_cull_kernel``) and the CPU's path.
+
+    Pads R to a multiple of ``ray_block`` by repeating ray 0 (coherent with
+    block 0, so it costs ~nothing), culls (``_cull``), counts each block's
+    active clusters and orders them by entry distance (a stable argsort:
+    active first, equal entries in cluster order), and packs ``rays`` = [o,
+    d, t_init, t_lim, 0 x 8] and ``prev`` = [t_init, 0 x 10, -1, 0 x 4]."""
+    R = origin.shape[0]
     pad = (-R) % ray_block
     Rp = R + pad
     RB = Rp // ray_block
-    with profiling.stage("sweep.cull"):
-        if pad:
-            # repeat ray 0: coherent with block 0, so it costs ~nothing
-            origin = torch.cat([origin, origin[:1].expand(pad, 3)])
-            direction = torch.cat([direction, direction[:1].expand(pad, 3)])
-            t_init = torch.cat([t_init, t_init[:1].expand(pad)])
-        bt0, t_lim = _cull(origin, direction, t_init, cmin, cmax, RB,
-                           ray_block)
-        nact = torch.sum(bt0 < KINF, dim=1, dtype=torch.int32)
-        order = torch.argsort(bt0, dim=1, stable=True)  # active first
-        bt0_sorted = torch.gather(bt0, 1, order)
-        zeros = torch.zeros((Rp, 1), dtype=origin.dtype, device=origin.device)
-        rays = torch.cat([origin, direction, t_init[:, None], t_lim[:, None]]
-                         + [zeros] * 8, dim=1).view(RB, ray_block,
-                                                    PAYLOAD_COLS)
-        prev = torch.cat([t_init[:, None]] + [zeros] * 10 + [zeros - 1.0]
-                         + [zeros] * 4, dim=1).view(RB, ray_block,
-                                                    PAYLOAD_COLS)
-    with profiling.stage("sweep.kernel"):
-        pay = block_fn(nact, order.to(torch.int32), bt0_sorted, rays, prev,
-                       *tbl)
-    return pay.view(Rp, PAYLOAD_COLS)[:R]
+    if pad:
+        origin = torch.cat([origin, origin[:1].expand(pad, 3)])
+        direction = torch.cat([direction, direction[:1].expand(pad, 3)])
+        t_init = torch.cat([t_init, t_init[:1].expand(pad)])
+    bt0, t_lim = _cull(origin, direction, t_init, cmin, cmax, RB, ray_block)
+    nact = torch.sum(bt0 < KINF, dim=1, dtype=torch.int32)
+    order = torch.argsort(bt0, dim=1, stable=True)
+    bt0_sorted = torch.gather(bt0, 1, order)
+    zeros = torch.zeros((Rp, 1), dtype=origin.dtype, device=origin.device)
+    rays = torch.cat([origin, direction, t_init[:, None], t_lim[:, None]]
+                     + [zeros] * 8, dim=1).view(RB, ray_block, PAYLOAD_COLS)
+    prev = torch.cat([t_init[:, None]] + [zeros] * 10 + [zeros - 1.0]
+                     + [zeros] * 4, dim=1).view(RB, ray_block, PAYLOAD_COLS)
+    return nact, order.to(torch.int32), bt0_sorted, rays, prev
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on a CUDA card, where C1 runs."""
+    return t.device.type == "cuda"
+
+
+def cluster_cull_kernel(origin, direction, t_init, cmin, cmax,
+                        ray_block: int = RAY_BLOCK):
+    """C1: ``cull_order_plain`` in one launch (csrc/cluster_cull.cu) ->
+    the same five tensors, with nothing of size rays x clusters in device
+    memory.  nact, clist and prev equal the twin's bit for bit, bt0 and
+    rays as floats (an entry distance of -0.0 comes back as +0.0).
+
+    ``origin`` (R, 3) float32 (an origin expanded from one row is read in
+    place), ``direction`` (R, 3), ``t_init`` (R,), ``cmin`` / ``cmax``
+    (C, 3), C >= 1; any ``ray_block``.  Above CULL_SHARED_CLUSTERS clusters
+    each ray block's sort keys go to a (blocks, keys) int64 scratch, keys
+    the least power of two >= C: blocks x clusters, not rays x clusters.
+    Detached CUDA tensors only: the CPU runs the twin.  Launches through
+    ``launches.launch``: on the current stream without synchronising,
+    counted under C1."""
+    if not on_card(direction):
+        raise ValueError("cluster_cull_kernel: CUDA tensors only, got "
+                         f"{direction.device}")
+    R, C = direction.shape[0], cmin.shape[0]
+    if C < 1:
+        raise ValueError(f"cluster_cull_kernel: 1 or more clusters, got {C}")
+    f32, i32 = torch.float32, torch.int32
+    ins = (("origin", origin, f32, (R, 3)),
+           ("direction", direction, f32, (R, 3)),
+           ("t_init", t_init, f32, (R,)),
+           ("cmin", cmin, f32, (C, 3)),
+           ("cmax", cmax, f32, (C, 3)))
+    origin = origin.detach()
+    shared = origin.stride() == (0, 1)
+    args = [origin if shared else origin.contiguous()]
+    args += [t.detach().contiguous() for _, t, _, _ in ins[1:]]
+    dev = direction.device
+    RB = -(-R // ray_block)
+    outs = [torch.empty(RB, dtype=i32, device=dev),
+            torch.empty((RB, C), dtype=i32, device=dev),
+            torch.empty((RB, C), dtype=f32, device=dev),
+            torch.empty((RB, ray_block, PAYLOAD_COLS), dtype=f32, device=dev),
+            torch.empty((RB, ray_block, PAYLOAD_COLS), dtype=f32, device=dev)]
+    scratch = None
+    if C > CULL_SHARED_CLUSTERS:
+        scratch = torch.empty((RB, 1 << (C - 1).bit_length()),
+                              dtype=torch.int64, device=dev)
+    launches.launch("C1", dev, ins, args + outs + [scratch, R,
+                                                   0 if shared else 3,
+                                                   ray_block, C],
+                    contiguous=False)
+    return tuple(outs)
 
 
 def _sweep_blocks(nact, clist, bt0, rays, prev, test, visits=None):

@@ -4,7 +4,8 @@ path every wrapper launches through.
 ``KERNELS`` lists each kernel once under its tag in the kernel tables
 (B1-B3, the closest-hit searches of the sweeps and the BVH walk; T1, the
 transport's shading; H1, the brute-force closest-hit search; P1, the
-serving post-processing): its library (``csrc/<library>.cu``, built by
+serving post-processing; C1, the cluster sweep's cull and per-block
+order): its library (``csrc/<library>.cu``, built by
 ``build.load``, and its name in the launch maps that bench.py, cli.py and
 dp_check.py print), its C entry and that entry's ctypes arguments.  Every entry returns a CUDA error code (0 on
 success) and every library exports ``wc_cuda_error_string``, which
@@ -13,7 +14,8 @@ success) and every library exports ``wc_cuda_error_string``, which
 A wrapper checks its inputs and launches through ``launch``, which counts
 the launch under the kernel's tag.  On CPU tensors a wrapper runs its
 plain twin (B1-B3) or refuses them (T1, H1: ``golden`` takes the twin; P1:
-``Renderer.output`` takes ``_finalize``), and nothing is counted.
+``Renderer.output`` takes ``_finalize``; C1: ``cluster_sweep`` takes
+``cull_order_plain``), and nothing is counted.
 """
 
 from __future__ import annotations
@@ -72,6 +74,12 @@ KERNELS = {k.tag: k for k in (
     # mode, stream
     Kernel("P1", "post_frame", "wc_post_frame",
            (_P,) * 4 + (_I,) * 7 + (_P,)),
+    # origin, direction, t_init, the cluster boxes' min and max corners, the
+    # five outputs (nact, clist, sorted entry distances, rays, prev), the
+    # sort keys' scratch or null, rays, origin's row stride, ray block,
+    # clusters, stream
+    Kernel("C1", "cluster_cull", "wc_cluster_cull",
+           (_P,) * 11 + (_I,) * 4 + (_P,)),
 )}
 
 _counts = dict.fromkeys(KERNELS, 0)

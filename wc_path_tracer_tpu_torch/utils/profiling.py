@@ -55,10 +55,12 @@ SPANS = (
 # lanes handed to it; at each call of the post kernels P1
 # (kernels/post.py::post_frame_kernel): the pixels handed to them; at each
 # NEE light sample of golden._bounce: the lanes that sample a light (summed
-# on the device), and the lanes handed to the shadow query
+# on the device), and the lanes handed to the shadow query; at each launch
+# of the sweep's cull kernel C1 (kernels/cluster.py::cluster_sweep): the
+# lanes handed to it
 COUNTERS = ("intersect.lanes", "intersect.alive", "compact.alive",
             "compact.kept", "shade.lanes", "brute.lanes", "post.pixels",
-            "nee.lanes", "shadow.lanes")
+            "nee.lanes", "shadow.lanes", "cull.lanes")
 
 _OFF = contextlib.nullcontext()
 _totals = contextvars.ContextVar("profiling_totals", default=None)
