@@ -86,17 +86,26 @@ class Outcome:
     breakdown: dict | None = None
     busy_s: float | None = None  # averaged over the ranks
     window_s: float | None = None
+    span_ms: dict | None = None  # a span pass's {"device", "self", "idle"}
+    counters: dict | None = None  # and the program's counters, a frame
 
 
 @dataclasses.dataclass
 class MetricView:
-    """What a per-layer metric reader sees of a traced run."""
+    """What a per-layer metric reader sees of a traced run.  ``span_ms``
+    and ``counters`` are a span pass's (perfbench.trace.span_pass), per
+    frame: ``span_ms["device"]`` the device ms of what each span launched,
+    nested spans included, ``span_ms["self"]`` by innermost span,
+    ``span_ms["idle"]`` the device's idle ms by the innermost span at each
+    gap's middle; None where no pass ran (on the CPU, in training)."""
 
     stretch: object
     render: dict
     world: int
     scene_sizes: dict
     spans: dict
+    span_ms: dict | None = None
+    counters: dict | None = None
 
 
 def process_started() -> float:
@@ -260,7 +269,8 @@ def result(ctx: Ctx, out: Outcome) -> dict:
                           scene_sizes=dict(
                               triangles=len(ctx.raw["indices"]) // 3,
                               spheres=len(ctx.raw["spheres"])),
-                          spans=out.spans)
+                          spans=out.spans, span_ms=out.span_ms,
+                          counters=out.counters)
         for m in cell_metrics(bench, ctx.name, True):
             v = metric_reader(m["name"])(view)
             if v is not None:

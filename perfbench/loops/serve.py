@@ -18,6 +18,13 @@ says which may be drawn), one of the most accumulated among them, is
 rendered again by the configuration's reference (``ctx.reference``) from
 the same edits and compared: the accumulated HDR image and the uint8
 output.
+
+A traced run on the card, after ``trace_skip`` frames, profiles
+``trace_steps`` frames with CUDA activity only, one more with CPU activity
+too (the idle gaps), then a span pass (perfbench.trace.span_pass): one
+profiled frame dropped, ``span_frames`` profiled frames, as many counted
+ones; ``post_ms`` times ``output()`` between CUDA events on every frame of
+the traced run but the span pass's.
 """
 
 from __future__ import annotations
@@ -153,7 +160,7 @@ def run(ctx):
                              rdr.frame_count))
 
     timed_post = ctx.trace and dev.type == "cuda"
-    stretch = gaps = None
+    stretch = gaps = split = None
     t0 = time.perf_counter()
     deadline = t0 + ctx.seconds
     while True:
@@ -162,6 +169,12 @@ def run(ctx):
             stretch = trace.stretch(lambda n: frames(n, True),
                                     tr["trace_steps"], dev)
             gaps = trace.idle_gaps(lambda n: frames(n, True), dev)
+            t_pass = time.perf_counter()
+            split = trace.span_pass(lambda n: frames(n, False), dev,
+                                    tr["span_frames"])
+            print(f"perfbench: span pass of 1 + 2 x {tr['span_frames']} "
+                  f"frames in {time.perf_counter() - t_pass:.2f} s",
+                  file=sys.stderr)
         else:
             frames(1, timed_post)
         if time.perf_counter() >= deadline and not (
@@ -197,6 +210,8 @@ def run(ctx):
         out.busy_s, out.window_s = stretch.busy_s, stretch.wall_s
         out.breakdown = {"device_ops": trace.device_ops_top(stretch),
                          "idle_gaps": gaps}
+        out.counters = split.pop("counters")
+        out.span_ms = split
     t_ref = time.perf_counter()
     reference = ctx.reference
     base = reference.prepare(ctx.raw, dev)

@@ -34,3 +34,18 @@ def render_config(render: dict, **post):
     from wc_path_tracer_tpu_torch.utils.config import RenderConfig
 
     return RenderConfig(**render, **post)
+
+
+def span_names() -> tuple:
+    """The names of the program's spans (``profiling.SPANS``)."""
+    from wc_path_tracer_tpu_torch.utils import profiling
+
+    return tuple(name for name, _ in profiling.SPANS)
+
+
+def counting():
+    """``profiling.counting()``: the program's counters over a block; the
+    dict it yields holds {counter: total} once the block exits."""
+    from wc_path_tracer_tpu_torch.utils import profiling
+
+    return profiling.counting()

@@ -1,6 +1,8 @@
 """The benchmark's command on the card: one short run of each cell and its
-result line.  Marked ``gpu``; the fixture skips
-where there is no CUDA card (decided when the test runs, not at import).
+result line, which in a traced run holds every per-layer metric the cell's
+entries list (those of the stretch and those of the span pass).  Marked
+``gpu``; the fixture skips where there is no CUDA card (decided when the
+test runs, not at import).
 
     python -m pytest -p no:cacheprovider perfbench/tests/test_perfbench_gpu.py
 """
@@ -22,7 +24,8 @@ def card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("trace", [0, 1])
-@pytest.mark.parametrize("cell", ["bunny-serve", "cornell-serve"])
+@pytest.mark.parametrize("cell", ["bunny-serve", "cornell-serve",
+                                  "bsdf-serve", "bunny-box-nee-serve"])
 def test_a_short_run_on_the_card(card, cell, trace):
     bench = harness.spec()
     out = subprocess.run(bench["command"] + [
